@@ -68,6 +68,10 @@ def resolve_device(device) -> torch.device:
             raise RuntimeError(
                 f"device={str(device)!r} but no CUDA device is available; "
                 "pass device='cpu' to run the plain PyTorch version")
+        if dev.index is None:
+            # the device a tensor made on "cuda" reports, so that devices
+            # compare equal to tensors' devices
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

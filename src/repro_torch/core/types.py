@@ -1,8 +1,10 @@
-"""Request type of the scheduling framework (port of ``repro.core.types``).
+"""Request and SLO types of the scheduling framework (port of
+``repro.core.types``).
 
-Only the fields the trace generators, the router and the commit hooks
-read or write are kept; overload-control and fleet fields arrive with
-the modules that use them.
+Only the fields the trace generators, the router, the commit hooks, the
+serving engine and ``cluster.metrics`` read or write are kept;
+overload-control deadlines and fleet fields arrive with the modules that
+use them.
 """
 from __future__ import annotations
 
@@ -31,3 +33,44 @@ class Request:
     @property
     def new_tokens(self) -> int:
         return self.prompt_len - self.hit_tokens
+
+    @property
+    def ttft(self) -> float:
+        return self.t_first_token - self.arrival
+
+    @property
+    def tpot(self) -> float:
+        if self.output_len <= 1:
+            return 0.0
+        return (self.t_finish - self.t_first_token) / (self.output_len - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SLO:
+    """Per-request service-level objective (seconds)."""
+    ttft: float = 2.0
+    tpot: float = 0.020
+
+    def ttft_met(self, req: Request) -> bool:
+        return req.ttft <= self.ttft
+
+    def tpot_met(self, req: Request) -> bool:
+        # single-token requests have no TPOT and count as meeting it
+        return req.output_len <= 1 or req.tpot <= self.tpot
+
+
+DEFAULT_SLO = SLO()
+
+#: Per-family SLOs (chat-lenient / agent-strict); families not listed
+#: fall back to ``DEFAULT_SLO``.
+FAMILY_SLOS = {
+    "chatbot": SLO(ttft=2.5, tpot=0.025),
+    "agent": SLO(ttft=1.0, tpot=0.015),
+    "coder": SLO(ttft=2.0, tpot=0.020),
+    "toolagent": SLO(ttft=1.5, tpot=0.020),
+}
+
+
+def slo_for_family(family: str) -> SLO:
+    """The family's SLO, or ``DEFAULT_SLO`` for unknown/untagged."""
+    return FAMILY_SLOS.get(family, DEFAULT_SLO)

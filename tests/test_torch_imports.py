@@ -39,7 +39,12 @@ def test_every_module_imports_without_jax_or_repro():
     for mod in ("core.types", "core.radix", "core.indicators",
                 "core.policies", "core.pipeline", "core.router",
                 "core.state", "kernels.route_score", "kernels._build",
-                "workloads.traces"):
+                "workloads.traces", "kernels.prefill_attention",
+                "kernels.paged_attention", "models.config", "models.layers",
+                "models.attention", "models.model", "models.convert",
+                "configs", "configs.qwen2_7b", "configs.qwen3_4b",
+                "serving.block_manager", "serving.engine",
+                "cluster.metrics"):
         assert f"repro_torch.{mod}" in names, mod
 
 
@@ -67,3 +72,23 @@ def test_default_device_needs_a_card(monkeypatch):
         IndicatorFactory(4, device="meta")
     assert Router(make_policy("lmetric"), 4, device="cpu").device.type \
         == "cpu"
+
+
+def test_serving_entry_points_need_a_card(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import EngineCluster, InstanceEngine
+    cfg = get_config("qwen2_7b-smoke")
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InstanceEngine(cpu_model, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineCluster(2, cpu_model, params, make_policy("lmetric"))
+    cluster = EngineCluster(2, cpu_model, params, make_policy("lmetric"),
+                            device="cpu", max_len=64)
+    assert cluster.router.device.type == "cpu"
+    assert all(e.cache["k"].device.type == "cpu" for e in cluster.engines)
