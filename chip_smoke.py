@@ -42,7 +42,37 @@ Phases (each raises on failure, so any failure exits nonzero):
 7. attention timings — each kernel at the serving path's shapes (CUDA
    events), its plain version, its bound and one PyTorch library call
    as a yardstick (``scaled_dot_product_attention``, never used by the
-   port).
+   port);
+8. recurrent kernels vs plain — ``rglru_scan`` at (1, 512, 4096) and
+   ragged S and D with a non-zero h0; ``mlstm_cell`` at (1, 256, 4, 512),
+   at L = 37 from m0 = -1e30 and m0 = 0, and a chain of 4 chunks against
+   the plain chain, with f32 and the model's bf16 q/k/v (``REC_TOL``);
+9. attention at head dim 256 vs plain — both kernels at RecurrentGemma's
+   widths (16 query heads over 1 KV head, window 2048): prefill with
+   kept ring rows below, at and above W, decode over 8 rings with
+   contexts below and at W; and one full-width ``swa`` layer's cached
+   chunks, wrapping the ring, against its plain full forward;
+10. RecurrentGemma-9B serving — 38 layers at full width (random bf16
+   weights), phase 6's engine settings, 32 requests (four bare 1024-token
+   system prompts first, then each with a block-aligned 256-1536 token
+   suffix, 32 output tokens); the same checks as phase 6, with the
+   launches of ``rglru_scan`` (26 per chunk) and both attention kernels
+   (12 per chunk and per decode step) equal to the expected counts;
+11. xLSTM-350M serving — 24 layers at full width, 16 requests (two bare
+   1024-token system prompts, suffixes of 128-768 tokens) under the
+   ``exact_only`` router, ``mlstm_cell`` launches (21 x ceil(n/256) per
+   chunk of n tokens) as expected, logits held to the plain forward;
+12. recurrent timings — ``rglru_scan``, ``mlstm_cell`` and the head-dim
+   256 attention at the serving shapes beside their plain versions and
+   bounds.
+
+Each model is freed before the next is loaded.  If the run nears its
+time limit, the Qwen2-7B serving path's depth is cut first (printed);
+the recurrent paths keep their width and depth.
+
+``python3 chip_smoke.py --profile`` builds the kernels and, instead of
+the phases, traces decode steps and prefill chunks of each served model
+with ``torch.profiler`` (device busy share, top kernels).
 
 Without a CUDA device it exits with 2 and prints no result.  The three
 last lines of standard output are the JSON kernel record, the card's
@@ -50,6 +80,7 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import collections
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -70,6 +101,8 @@ MAIN_REQUESTS = 2000
 #: fewer requests (never fewer instances)
 CUT_AFTER_S = 600.0
 CUT_REQUESTS = 512
+#: past this point the Qwen2-7B serving path runs this many layers
+QWEN_CUT_AFTER_S, QWEN_CUT_LAYERS = 500.0, 8
 #: NVIDIA H100 SXM data sheet: HBM3 rate and float64 rate outside the
 #: tensor cores, both at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -81,7 +114,8 @@ CONFIGS = [("jsq", ()), ("linear", (0.7,)), ("filter", (8,)),
            ("lmetric", ("one_minus_hit", "bs")),
            ("lmetric", ("one_minus_hit", "tokens")), ("ptoken", ())]
 SHAPES = [(24, 32), (64, 1024), (64, 16384)]
-KERNELS = ("route_score", "prefill_attention", "paged_attention")
+KERNELS = ("route_score", "prefill_attention", "paged_attention",
+           "rglru_scan", "mlstm_cell")
 
 
 def card() -> str:
@@ -338,14 +372,26 @@ def time_wave(torch, rs, router, wave_reqs, reps=20):
 H_Q, H_KV, HEAD_DIM = 28, 4, 128
 #: NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate at 700 W
 BF16_OPS_PER_S = 989e12
-#: kernel vs plain version (see tests/test_torch_attention_cuda.py)
-ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: kernel vs plain version (see tests/test_torch_attention_cuda.py):
+#: (atol, rtol), each element within atol + rtol * |plain|.  The bf16
+#: checks draw q at scale 2 (k, v at 0.5) so that each softmax peaks over
+#: a few keys and outputs reach ~1: a wrong or dropped key then moves an
+#: output by more than 1e-2, while the two sides differ by about one bf16
+#: ulp of the output (rtol) plus the kernel's bf16 rounding of the
+#: softmax weights (atol).  The f32 checks keep q at 0.5
+ATTN_TOL = {"float32": (1e-4, 0.0), "bfloat16": (5e-3, 1e-2)}
+ATTN_Q_SCALE = {"float32": 0.5, "bfloat16": 2.0}
 #: engine vs plain full forward, bf16 logits: max |diff| over the vocab,
 #: and the RMS of the difference relative to the RMS of the logits.  Two
 #: bf16 paths through 28 random-weight layers part by 2-5% RMS, more on
 #: longer contexts (PERF.md); a wrong mask or a stale KV$ fragment gives
 #: ~80%
 LOGIT_ATOL, LOGIT_REL_RMS = 1.0, 0.15
+#: the same check in float32 (xLSTM-350M, whose bf16 logits are chaotic:
+#: ``--profile`` prints how far one ulp in 1% of the embeddings moves
+#: them): engine and plain forward part by ~0.004 max / 0.0015 RMS at full
+#: width
+LOGIT_F32 = (0.05, 0.02)
 ENGINES, MAX_BATCH, MAX_LEN, CHUNK = 4, 8, 4096, 512
 KV_BLOCK, PREFIX_CAPACITY = 16, 4
 N_SERVE, SYS_PREFIX, SUFFIX, OUT_TOKENS, MEAN_GAP_S = 32, 1024, (256, 1536), \
@@ -374,10 +420,34 @@ def paged_bound(ctx, page):
     return nbytes, 4 * HEAD_DIM * H_Q * total
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
+    return _bound_ms(nbytes, ops / ops_per_s * 1e3)
+
+
+def _bound_ms(nbytes, ops_ms):
+    """The larger of the bytes' time at the HBM rate and ``ops_ms``."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / BF16_OPS_PER_S * 1e3
-    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+    return max(b_ms, ops_ms), ("bytes" if b_ms >= ops_ms else "operations")
+
+
+def _excess(got, want, rtol):
+    """max(|got - want| - rtol * |want|): <= atol means within atol."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - rtol * want.abs()).max().item()
+
+
+def _attn_err(got, want, name, what, report):
+    """Hold an attention kernel's output to its plain version within
+    ``ATTN_TOL[name]``; appends the report line, returns max |diff|."""
+    atol, rtol = ATTN_TOL[name]
+    err = (got.float() - want.float()).abs().max().item()
+    exc = _excess(got, want, rtol)
+    report.append(f"{what}: max |diff| {err:.3g}, max |diff| - {rtol} "
+                  f"|plain| {exc:.3g} (<= {atol}), max |plain| "
+                  f"{want.float().abs().max().item():.3g}")
+    if not exc <= atol:
+        raise AssertionError(f"kernel != plain: {report[-1]}")
+    return err
 
 
 def manager_tables(torch, rng, dev):
@@ -419,9 +489,9 @@ def check_attention(torch):
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
 
-    def rand(shape, dtype):
+    def rand(shape, dtype, scale=0.5):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)
-                                * 0.5).to(dev, dtype)
+                                * scale).to(dev, dtype)
 
     worst = {"prefill_attention": 0.0, "paged_attention": 0.0}
     report = []
@@ -429,70 +499,87 @@ def check_attention(torch):
         dtype = getattr(torch, name)
         for Sq, off, window in ((512, 0, None), (512, 3072, None),
                                 (300, 1000, None), (512, 1024, 256)):
-            q = rand((1, Sq, H_Q, HEAD_DIM), dtype)
+            q = rand((1, Sq, H_Q, HEAD_DIM), dtype, ATTN_Q_SCALE[name])
             k = rand((1, off + Sq, H_KV, HEAD_DIM), dtype)
             v = rand((1, off + Sq, H_KV, HEAD_DIM), dtype)
             offs = torch.full((1,), off, dtype=torch.int32, device=dev)
             got = fp.flash_prefill(q, k, v, offs, window)
             want = fp.flash_prefill_plain(q, k, v, offs, window)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            report.append(f"prefill {name} Sq={Sq} off={off} "
-                          f"window={window}: {err:.3g}")
-            if not err <= ATTN_TOL[name]:
-                raise AssertionError(f"prefill_attention != plain: {err} > "
-                                     f"{ATTN_TOL[name]} ({report[-1]})")
+            err = _attn_err(got, want, name, f"prefill {name} Sq={Sq} "
+                            f"off={off} window={window}", report)
             worst["prefill_attention"] = max(worst["prefill_attention"], err)
         bt, ctx, shared = manager_tables(torch, rng, dev)
         n_pages = 8 * MAX_LEN // KV_BLOCK
         kp = rand((n_pages, KV_BLOCK, H_KV, HEAD_DIM), dtype)
         vp = rand((n_pages, KV_BLOCK, H_KV, HEAD_DIM), dtype)
-        q = rand((8, H_Q, HEAD_DIM), dtype)
+        q = rand((8, H_Q, HEAD_DIM), dtype, ATTN_Q_SCALE[name])
         got = pa.paged_attention(q, kp, vp, bt, ctx)
         want = pa.paged_attention_plain(q, kp, vp, bt, ctx)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        report.append(f"paged {name} B=8 page={KV_BLOCK} contexts "
-                      f"{ctx.tolist()} ({shared} shared pages): {err:.3g}")
-        if not err <= ATTN_TOL[name]:
-            raise AssertionError(f"paged_attention != plain: {err} > "
-                                 f"{ATTN_TOL[name]} ({report[-1]})")
+        err = _attn_err(got, want, name, f"paged {name} B=8 page={KV_BLOCK} "
+                        f"contexts {ctx.tolist()} ({shared} shared pages)",
+                        report)
         worst["paged_attention"] = max(worst["paged_attention"], err)
     return worst, report
 
 
-def serving_requests(vocab):
-    """32 arrivals: four 1024-token system prompts; the first request of
-    each is its system prompt with an 8-token opener (under one KV block,
-    so the engine stores the bare system prompt as a prefix fragment), the
-    others the system prompt of a random group plus a unique 256-1536
-    token suffix; 32 output tokens each; exponential gaps, 50 ms mean."""
+#: the serving workloads: requests, system prompts, suffix lengths, output
+#: tokens, the opener the first request of each system prompt carries
+#: (Qwen2-7B: 8 tokens, under one KV block; the recurrent paths: none, so
+#: the bare prompt is stored and every recurrent hit is exact, ROADMAP
+#: Queue C.9) and the granule of suffix lengths (block-aligned for the
+#: recurrent paths, so that the follow-up turn of the logit check hits an
+#: exact state too)
+WORKLOADS = {
+    "qwen2_7b": dict(n=N_SERVE, groups=4, suffix=SUFFIX, out=OUT_TOKENS,
+                     opener=8, align=1),
+    "recurrentgemma_9b": dict(n=32, groups=4, suffix=(256, 1536), out=32,
+                              opener=0, align=KV_BLOCK),
+    "xlstm_350m": dict(n=16, groups=2, suffix=(128, 768), out=16, opener=0,
+                       align=KV_BLOCK),
+}
+
+
+def serving_requests(vocab, w=WORKLOADS["qwen2_7b"]):
+    """``w["n"]`` arrivals: ``w["groups"]`` 1024-token system prompts; the
+    first request of each is its system prompt with ``w["opener"]`` more
+    tokens (so that the engine stores the bare system prompt as a prefix
+    fragment), the others the system prompt of a random group plus a
+    unique suffix of ``w["suffix"]`` tokens in steps of ``w["align"]``;
+    ``w["out"]`` output tokens each; exponential gaps, 50 ms mean."""
     rng = np.random.RandomState(SEED)
-    prefixes = [rng.randint(0, vocab, SYS_PREFIX) for _ in range(4)]
+    G = w["groups"]
+    prefixes = [rng.randint(0, vocab, SYS_PREFIX) for _ in range(G)]
+    lo, hi = (x // w["align"] for x in w["suffix"])
     arrivals, groups, t = [], [], 0.0
-    for i in range(N_SERVE):
+    for i in range(w["n"]):
         t += float(rng.exponential(MEAN_GAP_S))
-        g = i if i < 4 else int(rng.randint(4))
-        n = 8 if i < 4 else int(rng.randint(SUFFIX[0], SUFFIX[1] + 1))
+        g = i if i < G else int(rng.randint(G))
+        n = w["opener"] if i < G else \
+            int(rng.randint(lo, hi + 1)) * w["align"]
         toks = np.concatenate([prefixes[g], rng.randint(0, vocab, n)])
-        arrivals.append((t, toks.astype(np.int32), OUT_TOKENS))
+        arrivals.append((t, toks.astype(np.int32), w["out"]))
         groups.append(g)
     return arrivals, groups, prefixes
 
 
-def logits_vs_plain(torch, cluster, model, params, arrivals):
+def logits_vs_plain(torch, engines, model, params, arrivals,
+                    tol=(LOGIT_ATOL, LOGIT_REL_RMS)):
     """A follow-up turn of a served prompt (the prompt plus 700 new
     tokens), served step by step by the engine that still holds that
     prompt's fragment: its first-token logits (injected fragment +
-    chunked prefill through the kernel) and those of its next two decode
-    steps (paged kernel) against ``Model.prefill``, the plain full
-    forward, over the same tokens."""
+    chunked prefill through the kernels) and those of its next two decode
+    steps against ``Model.prefill``, the plain full forward, over the
+    same tokens, within ``tol`` = (max |diff|, RMS ratio).  Returns the
+    comparisons, each with the request's hit."""
+    atol, rel_rms = tol
     from repro_torch.core import Request
     from repro_torch.core.radix import tokens_to_blocks
     pick = None
     for _, served, _ in reversed(arrivals):        # most recent first
         key = tuple(tokens_to_blocks(served.tolist(), KV_BLOCK))
-        for eng in cluster.engines:
+        for eng in engines:
             if eng.prefix_store.lookup(key)[0] == key:
                 pick = (eng, served)
                 break
@@ -541,28 +628,109 @@ def logits_vs_plain(torch, cluster, model, params, arrivals):
         diff = (el - plain).abs()
         rel = float(diff.square().mean().sqrt() / plain.square().mean().sqrt())
         out.append({"step": j, "max_abs": float(diff.max()), "rel_rms": rel,
-                    "argmax_equal": int(el.argmax()) == int(plain.argmax())})
-        if not (out[-1]["max_abs"] <= LOGIT_ATOL and rel <= LOGIT_REL_RMS):
+                    "argmax_equal": int(el.argmax()) == int(plain.argmax()),
+                    "dtype": model.cfg.dtype, "tol": (atol, rel_rms),
+                    "hit": req.hit_tokens})
+        if not (out[-1]["max_abs"] <= atol and rel <= rel_rms):
             raise AssertionError(f"engine logits != plain forward: {out}")
         toks.append(seq.out_tokens[j])
-    return req.hit_tokens, out
+    return out
 
 
-def serving_path(torch, arch="qwen2_7b", device="cuda"):
-    """Phase 6: Qwen2-7B at full width and depth, 4 engines under the
-    LMetric router, 32 requests.  Returns the numbers to print.
+def embedding_sensitivity(torch, model, params, prompt):
+    """How far the plain forward's last logits move when one ulp of the
+    parameter dtype is added to 1% of the embedding entries (seeded):
+    (max |diff|, RMS ratio), the model's own rounding noise floor."""
+    w = params["embed"]["w"]
+    gen = torch.Generator(device=w.device).manual_seed(SEED + 6)
+    hit = torch.rand(w.shape, generator=gen, device=w.device) < 0.01
+    ulp = 2.0 ** -7 if w.dtype == torch.bfloat16 else 2.0 ** -23
+    w2 = torch.where(hit, (w.float() * (1 + ulp)).to(w.dtype), w)
+    toks = torch.from_numpy(np.asarray(prompt, np.int64)[None])
+    base, _ = model.prefill(params, toks, last_only=True)
+    moved, _ = model.prefill(dict(params, embed={"w": w2}), toks,
+                             last_only=True)
+    base, moved = base[0, -1], moved[0, -1]
+    d = moved - base
+    return (float(d.abs().max()),
+            float(d.square().mean().sqrt() / base.square().mean().sqrt()))
 
-    ``arch="qwen2_7b-smoke", device="cpu"`` rehearses the same path on
-    the CPU with the kernels' plain versions (no launches are counted
+
+def f32_logit_check(torch, model, params, arrivals):
+    """The logit check in float32: the bf16 model's weights widened, one
+    fresh engine of the same settings serves the last arrival's prompt
+    (block-aligned, so its stored state is exact), then its follow-up
+    turn is held to the f32 plain forward within ``LOGIT_F32``."""
+    import dataclasses
+    from repro_torch.core import Request
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import InstanceEngine
+    m32 = Model(dataclasses.replace(model.cfg, dtype="float32"),
+                device=model.device)
+    p32 = _cast(params, torch.float32)
+    eng = InstanceEngine(m32, p32, max_batch=2, max_len=MAX_LEN,
+                         chunk_tokens=CHUNK, block_size=KV_BLOCK,
+                         prefix_capacity=PREFIX_CAPACITY,
+                         device=model.device)
+    _, served, _ = arrivals[-1]
+    eng.submit(Request(rid=10 ** 6 + 1, arrival=0.0, blocks=(),
+                       prompt_len=len(served), output_len=1), served)
+    while eng.has_work():
+        eng.step()
+    return logits_vs_plain(torch, [eng], m32, p32, [arrivals[-1]], LOGIT_F32)
+
+
+def _launch_counters():
+    from repro_torch.kernels import mlstm_cell, paged_attention
+    from repro_torch.kernels import prefill_attention, rglru_scan
+    return {"prefill_attention": prefill_attention,
+            "paged_attention": paged_attention, "rglru_scan": rglru_scan,
+            "mlstm_cell": mlstm_cell}
+
+
+def expected_launches(cfg, chunks, decodes, on_card):
+    """Launches of each serving kernel for the chunk sizes ``chunks`` and
+    ``decodes`` decode steps, each engine's warm-up (one chunk of
+    min(CHUNK, 8) tokens and one decode step) included: one attention
+    launch per attention layer and chunk or step, one ``rglru_scan`` per
+    RG-LRU layer and chunk, ``ceil(n / 256)`` ``mlstm_cell`` per mLSTM
+    layer and chunk of n tokens (the reference's chunking), none for
+    sLSTM and none on the CPU."""
+    from repro_torch.models.recurrent import MLSTM_CHUNK
+    if not on_card:
+        return dict.fromkeys(_launch_counters(), 0)
+    kinds = collections.Counter(cfg.block_pattern)
+    n_attn = kinds["attn"] + kinds["swa"]
+    sizes = list(chunks) + [min(CHUNK, 8)] * ENGINES
+    return {"prefill_attention": n_attn * len(sizes),
+            "paged_attention": n_attn * (decodes + ENGINES),
+            "rglru_scan": kinds["rglru"] * len(sizes),
+            "mlstm_cell": kinds["mlstm"] * sum(-(-n // MLSTM_CHUNK)
+                                              for n in sizes)}
+
+
+def serving_path(torch, arch="qwen2_7b", device="cuda", n_layers=None):
+    """Phases 6, 10 and 11: ``arch`` at full width (``n_layers`` cuts the
+    depth of a dense model, never of a recurrent one), 4 engines under
+    the LMetric router, the requests of ``WORKLOADS[arch]``.  Returns the
+    numbers to print.
+
+    ``arch="<id>-smoke", device="cpu"`` rehearses the same path on the
+    CPU with the kernels' plain versions (no launches are counted
     there)."""
+    import dataclasses
     from repro_torch.cluster.metrics import summarize
     from repro_torch.configs import get_config
     from repro_torch.core import LMetricPolicy
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import prefill_attention as fp
     from repro_torch.models import Model
     from repro_torch.serving.engine import EngineCluster
     cfg = get_config(arch)
+    if n_layers is not None and n_layers < cfg.n_layers:
+        if set(cfg.block_pattern) != {"attn"}:
+            raise ValueError("only a dense model's depth may be cut")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                                  block_pattern=cfg.block_pattern[:n_layers])
+    w = WORKLOADS[arch.replace("-smoke", "")]
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
@@ -571,7 +739,10 @@ def serving_path(torch, arch="qwen2_7b", device="cuda"):
     sync()
     t_init = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    arrivals, groups, prefixes = serving_requests(cfg.vocab_size)
+    mem = (lambda: torch.cuda.memory_allocated()) if on_card else \
+        (lambda: 0)
+    mem_weights = mem()
+    arrivals, groups, prefixes = serving_requests(cfg.vocab_size, w)
     cluster = EngineCluster(ENGINES, model, params, LMetricPolicy(),
                             block_size=KV_BLOCK, device=device,
                             max_batch=MAX_BATCH, max_len=MAX_LEN,
@@ -585,31 +756,34 @@ def serving_path(torch, arch="qwen2_7b", device="cuda"):
                           ev["decode_bs"], ev["wall"], len(ev["first"])))
             return ev
         eng.step = logged
+    mem_engines = mem()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    fp.LAUNCHES, pa.LAUNCHES = 0, 0
+    counters = _launch_counters()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
     t0 = time.perf_counter()
     done = cluster.run(arrivals)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"prefill_attention": fp.LAUNCHES,
-                "paged_attention": pa.LAUNCHES}
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     chunks = [s for s in steps if s[1] == "prefill"]
     decodes = [s for s in steps if s[1] == "decode"]
-    # each engine's warmup runs one prefill chunk and one decode step
-    L = cfg.n_layers if on_card else 0
-    want = {"prefill_attention": L * (len(chunks) + ENGINES),
-            "paged_attention": L * (len(decodes) + ENGINES)}
+    want = expected_launches(cfg, [c[2] for c in chunks], len(decodes),
+                             on_card)
     if launches != want:
-        raise AssertionError(f"attention launches {launches} != {want} "
+        raise AssertionError(f"{cfg.name}: launches {launches} != {want} "
                              f"({len(chunks)} chunks, {len(decodes)} decode "
-                             f"steps, {ENGINES} warmups, {L} layers)")
-    if len(done) != N_SERVE:
-        raise AssertionError(f"{len(done)} of {N_SERVE} requests finished")
+                             f"steps, {ENGINES} warm-ups)")
+    if len(done) != w["n"]:
+        raise AssertionError(f"{len(done)} of {w['n']} requests finished")
     # LMetric may place a shared-prefix request on an instance that never
     # saw its system prompt (load outweighs the hit); every one placed on
-    # an instance that did must report a hit of the whole system prompt
+    # an instance that did must report a hit of the whole system prompt.
+    # An exact_only router credits only whole routed prompts, so there
+    # only the instance that took the bare system prompt holds it
+    exact_only = cluster.router.factory.exact_only
     holders = {g: set() for g in range(len(prefixes))}
     hot, cold, misses = 0, 0, []
     for r in sorted(done, key=lambda r: r.rid):       # routing order
@@ -620,7 +794,8 @@ def serving_path(torch, arch="qwen2_7b", device="cuda"):
                 misses.append((r.rid, g, r.sched_to, r.hit_tokens))
         elif holders[g]:
             cold += 1
-        holders[g].add(r.sched_to)
+        if not exact_only or r.rid < len(prefixes):
+            holders[g].add(r.sched_to)
     if misses:
         raise AssertionError(f"requests placed with their system prompt "
                              f"but without a >= {SYS_PREFIX}-token hit "
@@ -629,16 +804,33 @@ def serving_path(torch, arch="qwen2_7b", device="cuda"):
     computed = sum(s[2] for s in chunks)
     if prompt_tokens - computed < SYS_PREFIX:
         raise AssertionError("no prefill was skipped by a KV$ fragment")
-    hit, logit_checks = logits_vs_plain(torch, cluster, model, params,
-                                        arrivals)
-    return {"cfg": cfg, "n_params": n_params, "init_s": t_init,
-            "wall_s": wall, "summary": summarize(done),
-            "launches": launches, "chunks": chunks, "decodes": decodes,
-            "prompt_tokens": prompt_tokens, "computed_tokens": computed,
-            "hit_tokens": sum(r.hit_tokens for r in done), "peak": peak,
-            "logit_checks": logit_checks, "check_hit": hit,
-            "placed_hot": hot, "placed_cold": cold,
-            "instances": collections.Counter(r.sched_to for r in done)}
+    if arch.startswith("xlstm"):
+        # xLSTM-350M with random weights is chaotic in bf16 (one ulp in 1%
+        # of its embeddings moves its own logits by an RMS ratio of ~0.8,
+        # ``--profile``), so its engine is held to the plain forward in f32
+        logit_checks = f32_logit_check(torch, model, params, arrivals)
+    else:
+        logit_checks = logits_vs_plain(torch, cluster.engines, model,
+                                       params, arrivals)
+    out = {"cfg": cfg, "n_params": n_params, "init_s": t_init,
+           "wall_s": wall, "summary": summarize(done), "n_req": w["n"],
+           "launches": launches, "chunks": chunks, "decodes": decodes,
+           "prompt_tokens": prompt_tokens, "computed_tokens": computed,
+           "hit_tokens": sum(r.hit_tokens for r in done), "peak": peak,
+           "mem_weights": mem_weights, "mem_engines": mem_engines,
+           "logit_checks": logit_checks,
+           "placed_hot": hot, "placed_cold": cold,
+           "exact_only": exact_only,
+           "instances": collections.Counter(r.sched_to for r in done)}
+    return out
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
 
 
 def _leaves(tree):
@@ -736,25 +928,375 @@ def time_attention(torch):
     return out
 
 
-def profile_steps(torch, gpu):
+# ---------------------------------------------------------------------------
+# the recurrent paths (phases 8-12): RecurrentGemma-9B and xLSTM-350M
+# ---------------------------------------------------------------------------
+#: RecurrentGemma-9B's local attention and recurrence widths
+#: (src/repro_torch/configs/recurrentgemma_9b.py)
+RG_H, RG_KV, RG_HD, RG_W, RG_DR = 16, 1, 256, 2048, 4096
+#: xLSTM-350M's mLSTM cell: 4 heads of 2 * 1024 / 4, chunks of 256
+XL_H, XL_HD, XL_L = 4, 512, 256
+#: NVIDIA H100 SXM data sheet: float32 rate outside the tensor cores
+FP32_OPS_PER_S = 67e12
+#: kernel vs plain version (see tests/test_torch_recurrent_cuda.py):
+#: rglru_scan atol; mlstm_cell (atol, rtol) by q/k/v dtype, h and state
+REC_TOL = {"rglru_scan": 2e-5, "float32": (1e-4, 1e-4),
+           "bfloat16": (2e-2, 1e-2)}
+#: one full-width swa layer's cached chunks vs its plain full forward, f32
+SWA_LAYER_ATOL = 2e-3
+
+
+def check_recurrent(torch):
+    """Phase 8: rglru_scan and mlstm_cell against their plain versions on
+    the card.  Returns the worst error of each and the report lines."""
+    from repro_torch.kernels import mlstm_cell as mc
+    from repro_torch.kernels import rglru_scan as rs
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 3)
+
+    def rand(shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(dev, dtype)
+
+    worst = {"rglru_scan": 0.0, "mlstm_cell": 0.0}
+    report = []
+    for B, S, D in ((1, CHUNK, RG_DR), (1, 333, 4000), (2, 17, 31)):
+        a = torch.from_numpy((rng.rand(B, S, D) * 0.95).astype(
+            np.float32)).to(dev)
+        x, h0 = rand((B, S, D)), rand((B, D))
+        h, hl = rs.rglru_scan(a, x, h0)
+        hp, hlp = rs.rglru_scan_plain(a, x, h0)
+        torch.cuda.synchronize()
+        err = max((h - hp).abs().max().item(), (hl - hlp).abs().max().item())
+        report.append(f"rglru_scan (B, S, D) = {(B, S, D)}, h0 != 0: "
+                      f"{err:.3g}")
+        if not err <= REC_TOL["rglru_scan"]:
+            raise AssertionError(f"rglru_scan != plain: {report[-1]}")
+        worst["rglru_scan"] = max(worst["rglru_scan"], err)
+
+    def cell_inputs(L, m0, dtype):
+        q, k, v = (rand((1, L, XL_H, XL_HD), 0.3, dtype) for _ in range(3))
+        il, fl = rand((1, L, XL_H), 0.5), -rand((1, L, XL_H), 0.3).abs()
+        C0 = rand((1, XL_H, XL_HD, XL_HD), 0.1)
+        n0 = rand((1, XL_H, XL_HD), 0.1).abs()
+        if m0 is None:
+            return q, k, v, il, fl, C0, n0, rand((1, XL_H), 0.1)
+        if m0 < -1e29:                               # a fresh state
+            C0.zero_()
+            n0.zero_()
+        return q, k, v, il, fl, C0, n0, torch.full((1, XL_H), m0,
+                                                    device=dev)
+
+    def compare(got, want, dtype, what):
+        atol, rtol = REC_TOL[str(dtype).split(".")[-1]]
+        err_h = (got[0].float() - want[0].float()).abs().max().item()
+        st_atol, st_rtol = REC_TOL["float32"]
+        err_st = max((g - w).abs().max().item()
+                     for g, w in zip(got[1], want[1]))
+        report.append(f"mlstm_cell {what} {str(dtype)[6:]}: h {err_h:.3g}, "
+                      f"state {err_st:.3g}")
+        if not (_excess(got[0], want[0], rtol) <= atol and all(
+                _excess(g, w, st_rtol) <= st_atol
+                for g, w in zip(got[1], want[1]))):
+            raise AssertionError(f"mlstm_cell != plain: {report[-1]}")
+        worst["mlstm_cell"] = max(worst["mlstm_cell"], err_h, err_st)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for L, m0 in ((XL_L, None), (37, -1e30), (37, 0.0)):
+            inputs = cell_inputs(L, m0, dtype)
+            got = mc.mlstm_chunk(*inputs)
+            want = mc.mlstm_chunk_plain(*inputs)
+            torch.cuda.synchronize()
+            compare(got, want, dtype, f"(1, {L}, {XL_H}, {XL_HD}) m0={m0}")
+        q, k, v, il, fl, *_ = cell_inputs(4 * XL_L, 0.0, dtype)
+        st = stp = (torch.zeros((1, XL_H, XL_HD, XL_HD), device=dev),
+                    torch.zeros((1, XL_H, XL_HD), device=dev),
+                    torch.full((1, XL_H), -1e30, device=dev))
+        for c in range(4):
+            sl = slice(c * XL_L, (c + 1) * XL_L)
+            args = [t[:, sl].contiguous() for t in (q, k, v, il, fl)]
+            got = mc.mlstm_chunk(*args, *st)
+            want = mc.mlstm_chunk_plain(*args, *stp)
+            st, stp = got[1], want[1]
+            torch.cuda.synchronize()
+            compare(got, want, dtype, f"chain chunk {c} of 4")
+    return worst, report
+
+
+def check_attention_hd256(torch):
+    """Phase 9: both attention kernels at RecurrentGemma's widths (hd 256,
+    KV 1, G 16, window 2048), and one full-width swa layer's cached chunks
+    (through the ring and the kernel) against its plain full forward."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as fp
+    from repro_torch.models import attention as attn
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 4)
+
+    def rand(shape, dtype, scale=0.5):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(dev, dtype)
+
+    worst = {"prefill_attention": 0.0, "paged_attention": 0.0}
+    report = []
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        # kept ring rows below, at and above... W (a ring holds at most W)
+        for Sq, kept in ((CHUNK, 0), (CHUNK, 1024), (CHUNK, RG_W),
+                         (300, 1800)):
+            q = rand((1, Sq, RG_H, RG_HD), dtype, ATTN_Q_SCALE[name])
+            k = rand((1, kept + Sq, RG_KV, RG_HD), dtype)
+            v = rand((1, kept + Sq, RG_KV, RG_HD), dtype)
+            offs = torch.full((1,), kept, dtype=torch.int32, device=dev)
+            got = fp.flash_prefill(q, k, v, offs, RG_W)
+            want = fp.flash_prefill_plain(q, k, v, offs, RG_W)
+            torch.cuda.synchronize()
+            err = _attn_err(got, want, name, f"prefill hd 256 {name} "
+                            f"Sq={Sq} kept={kept} window={RG_W}", report)
+            worst["prefill_attention"] = max(worst["prefill_attention"], err)
+        B = MAX_BATCH
+        ring_k = rand((B, RG_W, RG_KV, RG_HD), dtype)
+        ring_v = rand((B, RG_W, RG_KV, RG_HD), dtype)
+        pages = (B * RG_W // KV_BLOCK, KV_BLOCK, RG_KV, RG_HD)
+        bt = attn.decode_tables(B, RG_W, dev)
+        ctx = torch.tensor([1, 17, 600, RG_W - 1, RG_W, RG_W, 1500, RG_W],
+                           dtype=torch.int32, device=dev)
+        q = rand((B, RG_H, RG_HD), dtype, ATTN_Q_SCALE[name])
+        got = pa.paged_attention(q, ring_k.view(pages), ring_v.view(pages),
+                                 bt, ctx)
+        want = pa.paged_attention_plain(q, ring_k.view(pages),
+                                        ring_v.view(pages), bt, ctx)
+        torch.cuda.synchronize()
+        err = _attn_err(got, want, name, f"paged hd 256 {name} B={B} ring "
+                        f"{RG_W} contexts {ctx.tolist()}", report)
+        worst["paged_attention"] = max(worst["paged_attention"], err)
+    # one swa layer at full width, f32: cached chunks wrap the ring
+    cfg = dataclasses.replace(get_config("recurrentgemma_9b"),
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = attn.init_attention(gen, cfg, "swa")
+    S = 2600
+    x = rand((1, S, cfg.d_model), torch.float32, 1.0)
+    want, _ = attn.attn_prefill(p, x, torch.arange(S, device=dev)[None],
+                                cfg, "swa")
+    ring_k = torch.zeros((1, RG_W, RG_KV, RG_HD), device=dev)
+    ring_v = torch.zeros_like(ring_k)
+    bounds = (0, 512, 1024, 1900, 2412, S)     # 1900..2412 wraps the ring
+    err = 0.0
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        plan = attn.prefill_plan("swa", [lo], hi - lo, RG_W, dev)
+        y = attn.attn_prefill_cached(
+            p, x[:, lo:hi], torch.arange(lo, hi, device=dev)[None], cfg,
+            "swa", ring_k, ring_v, plan)
+        err = max(err, (y - want[:, lo:hi]).abs().max().item())
+    torch.cuda.synchronize()
+    report.append(f"swa layer (d_model {cfg.d_model}, hd {RG_HD}, window "
+                  f"{RG_W}) chunks {bounds} vs plain full forward, f32: "
+                  f"{err:.3g}")
+    if not err <= SWA_LAYER_ATOL:
+        raise AssertionError(f"swa cached chunks != full forward: "
+                             f"{report[-1]}")
+    return worst, report
+
+
+def time_recurrent(torch):
+    """Phase 12: rglru_scan, mlstm_cell and the head-dim 256 attention at
+    the serving shapes (CUDA events), beside their plain versions and
+    bounds; no single PyTorch call computes either recurrent function
+    (library_ms null), SDPA is the attention's yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mlstm_cell as mc
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as fp
+    from repro_torch.kernels import rglru_scan as rs
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    rng = np.random.RandomState(SEED + 5)
+    out = {}
+
+    def rand(*shape, dtype=torch.float32, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(dev, dtype)
+
+    # rglru_scan: one 512-token chunk of one RG-LRU layer
+    B, S, D = 1, CHUNK, RG_DR
+    a = torch.from_numpy((rng.rand(B, S, D) * 0.95).astype(
+        np.float32)).to(dev)
+    x, h0 = rand(B, S, D), rand(B, D)
+    ms = _events_ms(torch, lambda: rs.rglru_scan(a, x, h0), 100)
+    plain = _events_ms(torch, lambda: rs.rglru_scan_plain(a, x, h0), 3)
+    nbytes, ops = 4 * (3 * B * S * D + 2 * B * D), 2 * B * S * D
+    bound, by = _bound(nbytes, ops, FP32_OPS_PER_S)
+    out["rglru_scan"] = dict(shape=f"(B, S, D) = {(B, S, D)}", ms=ms,
+                             plain_ms=plain, library_ms=None,
+                             bound_ms=bound, bound_by=by, bytes=nbytes,
+                             ops=ops)
+    # mlstm_cell: one 256-token chunk of one mLSTM layer, bf16 q/k/v
+    L, H, hd = XL_L, XL_H, XL_HD
+    q, k, v = (rand(1, L, H, hd, dtype=bf, scale=0.3) for _ in range(3))
+    il, fl = rand(1, L, H, scale=0.5), -rand(1, L, H, scale=0.3).abs()
+    C0, n0 = rand(1, H, hd, hd, scale=0.1), rand(1, H, hd, scale=0.1).abs()
+    m0 = torch.zeros((1, H), device=dev)
+    args = (q, k, v, il, fl, C0, n0, m0)
+    ms = _events_ms(torch, lambda: mc.mlstm_chunk(*args), 50)
+    plain = _events_ms(torch, lambda: mc.mlstm_chunk_plain(*args), 5)
+    # q k^T and S v over the causal half of the (L, L) square (S is 0
+    # above the diagonal), q C0 and (k w)^T v over the whole state; q k^T
+    # has bf16 operands (exact on tensor cores with f32 sums), the others
+    # an f32 operand (S, C0, the decay weights w)
+    pairs = L * (L + 1) // 2
+    ops_bf16 = H * 2 * pairs * hd
+    ops_f32 = H * (2 * pairs * hd + 2 * 2 * L * hd * hd)
+    nbytes = (2 * 4 * L * H * hd + 4 * 2 * (H * hd * hd + H * hd + H)
+              + 4 * 2 * L * H)
+    bound, by = _bound_ms(nbytes, (ops_bf16 / BF16_OPS_PER_S
+                                   + ops_f32 / FP32_OPS_PER_S) * 1e3)
+    out["mlstm_cell"] = dict(shape=f"(B, L, H, hd) = {(1, L, H, hd)} bf16",
+                             ms=ms, plain_ms=plain, library_ms=None,
+                             bound_ms=bound, bound_by=by, bytes=nbytes,
+                             ops=f"{ops_bf16} bf16 + {ops_f32} f32")
+    # prefill attention at hd 256: a 512-token chunk after a 1024-token hit
+    Sq, kept = CHUNK, SYS_PREFIX
+    Sk = kept + Sq
+    q = rand(1, Sq, RG_H, RG_HD, dtype=bf, scale=0.5)
+    k = rand(1, Sk, RG_KV, RG_HD, dtype=bf, scale=0.5)
+    v = rand(1, Sk, RG_KV, RG_HD, dtype=bf, scale=0.5)
+    offs = torch.full((1,), kept, dtype=torch.int32, device=dev)
+    ms = _events_ms(torch, lambda: fp.flash_prefill(q, k, v, offs, RG_W), 50)
+    plain = _events_ms(torch, lambda: fp.flash_prefill_plain(
+        q, k, v, offs, RG_W), 5)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).expand(1, RG_H, Sk, RG_HD)
+    vt = v.transpose(1, 2).expand(1, RG_H, Sk, RG_HD)
+    qpos = kept + torch.arange(Sq, device=dev)[:, None]
+    kpos = torch.arange(Sk, device=dev)[None]
+    mask = (kpos <= qpos) & (qpos - kpos < RG_W)
+    lib = _events_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 20)
+    seen = sum(min(kept + i + 1, RG_W) for i in range(Sq))
+    nbytes = 2 * (2 * Sq * RG_H * RG_HD + 2 * Sk * RG_KV * RG_HD) + 4
+    ops = 4 * RG_HD * RG_H * seen
+    bound, by = _bound(nbytes, ops)
+    out["prefill_attention hd 256"] = dict(
+        shape=f"Sq={Sq} over {kept} kept ring rows, H={RG_H} KV={RG_KV}",
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+        bytes=nbytes, ops=ops)
+    # paged attention at hd 256: 8 rings of 2048, contexts up to W
+    B = MAX_BATCH
+    ring_k = rand(B, RG_W, RG_KV, RG_HD, dtype=bf, scale=0.5)
+    ring_v = rand(B, RG_W, RG_KV, RG_HD, dtype=bf, scale=0.5)
+    pages = (B * RG_W // KV_BLOCK, KV_BLOCK, RG_KV, RG_HD)
+    bt = torch.arange(B * RG_W // KV_BLOCK, dtype=torch.int32,
+                      device=dev).reshape(B, -1)
+    ctx_np = np.minimum(rng.randint(SYS_PREFIX + 256, SYS_PREFIX + 1536 + 32,
+                                    B), RG_W).astype(np.int32)
+    ctx = torch.from_numpy(ctx_np).to(dev)
+    q = rand(B, RG_H, RG_HD, dtype=bf, scale=0.5)
+    kp, vp = ring_k.view(pages), ring_v.view(pages)
+    ms = _events_ms(torch, lambda: pa.paged_attention(q, kp, vp, bt, ctx),
+                    200)
+    plain = _events_ms(torch, lambda: pa.paged_attention_plain(
+        q, kp, vp, bt, ctx), 5)
+    kt = ring_k.transpose(1, 2).expand(B, RG_H, RG_W, RG_HD)
+    vt = ring_v.transpose(1, 2).expand(B, RG_H, RG_W, RG_HD)
+    mask = (torch.arange(RG_W, device=dev)[None]
+            < ctx[:, None])[:, None, None]
+    lib = _events_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask), 50)
+    total = int(ctx_np.sum())
+    pages_read = int(sum(-(-int(c) // KV_BLOCK) for c in ctx_np))
+    nbytes = (2 * 2 * total * RG_KV * RG_HD + 2 * 2 * B * RG_H * RG_HD
+              + 4 * pages_read + 4 * B)
+    ops = 4 * RG_HD * RG_H * total
+    bound, by = _bound(nbytes, ops)
+    out["paged_attention hd 256"] = dict(
+        shape=f"B={B} rings of {RG_W}, contexts {ctx_np.tolist()}", ms=ms,
+        plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+        bytes=nbytes, ops=ops)
+    return out
+
+
+def report_serving(gpu, sv):
+    """Print one serving path's numbers (phases 6, 10, 11)."""
+    s = sv["summary"]
+    cfg = sv["cfg"]
+    tag = f"[{gpu}] serving {cfg.name}:"
+    ch_tok = sv["computed_tokens"]
+    ch_s = sum(c[4] for c in sv["chunks"])
+    dec_ms = [d[4] * 1e3 for d in sv["decodes"]]
+    full = [d[4] * 1e3 for d in sv["decodes"] if d[3] == MAX_BATCH]
+    kinds = dict(collections.Counter(cfg.block_pattern))
+    print(f"{tag} {cfg.n_layers} layers {kinds} d_model {cfg.d_model} "
+          f"head_dim {cfg.resolved_head_dim} {sv['n_params'] / 1e9:.2f} B "
+          f"params (bf16, seeded on the card in {sv['init_s']:.1f} s); "
+          f"{ENGINES} engines x max_batch {MAX_BATCH} x max_len {MAX_LEN}, "
+          f"chunk {CHUNK}, LMetric router (exact_only "
+          f"{sv['exact_only']}); {s['n']} of {sv['n_req']} requests served "
+          f"in {sv['wall_s']:.1f} s wall")
+    print(f"{tag} TTFT mean {s['ttft_mean'] * 1e3:.1f} ms p50 "
+          f"{s['ttft_p50'] * 1e3:.1f} p95 {s['ttft_p95'] * 1e3:.1f} | TPOT "
+          f"mean {s['tpot_mean'] * 1e3:.2f} ms p95 {s['tpot_p95'] * 1e3:.2f}"
+          f" | SLO attainment {s['slo_attainment']:.3f} | virtual time "
+          f"from measured step walls, makespan {s['makespan']:.2f} s")
+    print(f"{tag} {len(sv['chunks'])} prefill chunks, {ch_tok} tokens "
+          f"computed at {ch_tok / ch_s:.0f} tokens/s of prefill step wall; "
+          f"{sv['prompt_tokens']} prompt tokens, "
+          f"{sv['prompt_tokens'] - ch_tok} skipped by KV$ fragments; "
+          f"reported hit tokens {sv['hit_tokens']}; requests per instance "
+          f"{dict(sorted(sv['instances'].items()))}; {sv['placed_hot']} "
+          f"shared-prefix requests placed where their system prompt was "
+          f"routed before (all hit >= {SYS_PREFIX}), {sv['placed_cold']} "
+          f"elsewhere by load")
+    mid = [c[4] * 1e3 for c in sv["chunks"] if c[2] == CHUNK and not c[5]]
+    last = [c[4] * 1e3 for c in sv["chunks"] if c[5]]
+    med = (lambda v: float(np.median(v)) if v else float("nan"))
+    print(f"{tag} prefill step wall, median: full {CHUNK}-token chunk that "
+          f"does not end its prompt {med(mid):.2f} ms ({len(mid)} chunks; a "
+          f"first chunk after a hit includes the fragment's upload); chunk "
+          f"that ends its prompt {med(last):.2f} ms ({len(last)}; includes "
+          f"the fragment's copy to the host)")
+    print(f"{tag} {len(dec_ms)} decode steps, median {med(dec_ms):.2f} ms "
+          f"(with all {MAX_BATCH} slots running: {len(full)} steps, median "
+          f"{med(full):.2f} ms); device memory: weights "
+          f"{sv['mem_weights'] / 2 ** 30:.2f} GiB, with the engines' caches "
+          f"{sv['mem_engines'] / 2 ** 30:.2f} GiB, peak while serving "
+          f"{sv['peak'] / 2 ** 30:.2f} GiB")
+    print(f"{tag} kernel launches {sv['launches']} (expected, from "
+          f"{len(sv['chunks'])} chunks, {len(sv['decodes'])} decode steps "
+          f"and {ENGINES} warm-ups)")
+    for c in sv["logit_checks"]:
+        print(f"{tag} engine (hit {c['hit']} tokens) vs plain full "
+              f"forward, {c['dtype']}, step {c['step']}: max |dlogit| "
+              f"{c['max_abs']:.4f}, RMS ratio {c['rel_rms']:.4f}, argmax "
+              f"equal {c['argmax_equal']} (tolerance {c['tol'][0]}, "
+              f"{c['tol'][1]})")
+
+
+def profile_steps(torch, gpu, arch):
     """``--profile``: where a serving step's time goes on the card.  Traces
-    Qwen2-7B steps at the serving path's shapes with ``torch.profiler``:
+    ``arch``'s steps at the serving path's shapes with ``torch.profiler``:
     5 decode steps of 8 slots at position ~2000, and 3 prefill chunks of
-    512 tokens over a 1024-token prefix.  Prints the wall per step, the
-    device time summed over kernels (busy share = device time / wall)
-    and the kernels that take the most device time."""
+    512 tokens over a 1024-token prefix.  Prints the wall per step with
+    and without the profiler, the device time summed over kernels (busy
+    share = device time / wall without the profiler) and the kernels that
+    take the most device time.  Then the model's rounding noise floor
+    (``embedding_sensitivity``) over a 2748-token prompt in bf16, and for
+    xLSTM-350M, whose logit check runs in f32, in f32 too."""
+    import dataclasses
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    cfg = get_config("qwen2_7b")
+    cfg = get_config(arch)
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
     cache = model.init_cache(MAX_BATCH, MAX_LEN)
     rng = np.random.RandomState(SEED)
     toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, CHUNK)))
     pos = torch.from_numpy(rng.randint(1900, 2100, MAX_BATCH))
-    slot = {"k": cache["k"][:, :1], "v": cache["v"][:, :1]}
+    slot = [{n: t[:1] for n, t in c.items()} for c in cache]
 
     def decode():
         logits, _ = model.decode_step(params, toks[:, :MAX_BATCH].T, pos,
@@ -772,6 +1314,11 @@ def profile_steps(torch, gpu):
                          prefill, 3)):
         fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        bare = (time.perf_counter() - t0) / n
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -787,12 +1334,62 @@ def profile_steps(torch, gpu):
                 us[e.name] += e.device_time_total
                 count[e.name] += 1
         busy = sum(us.values()) / n / 1e3                   # ms per step
-        print(f"[{gpu}] profile {name}: wall {wall * 1e3:.2f} ms, device "
-              f"busy {busy:.2f} ms ({busy / (wall * 1e3):.1%}), "
+        print(f"[{gpu}] profile {cfg.name} {name}: wall {bare * 1e3:.2f} ms "
+              f"({wall * 1e3:.2f} under the profiler), device busy "
+              f"{busy:.2f} ms ({busy / (bare * 1e3):.1%} of the wall), "
               f"{sum(count.values()) // n} device ops per step")
         for key, t in us.most_common(8):
             print(f"[{gpu}]   {t / n / 1e3:8.3f} ms  x{count[key] // n:<4d} "
                   f"{key[:90]}")
+    del cache, slot
+    gc.collect()
+    prompt = rng.randint(0, cfg.vocab_size, 2 * SYS_PREFIX + 700)
+    floors = [("bf16", model, params)]
+    if arch.startswith("xlstm"):
+        floors.append(("f32", Model(dataclasses.replace(cfg,
+                                                        dtype="float32")),
+                       _cast(params, torch.float32)))
+    for dt, m, p in floors:
+        mx, rel = embedding_sensitivity(torch, m, p, prompt)
+        print(f"[{gpu}] noise floor {cfg.name} {dt}: one ulp in 1% of the "
+              f"embeddings moves the plain forward's last logits over "
+              f"{len(prompt)} tokens by max {mx:.4f}, RMS ratio {rel:.4f}")
+    del model, params, floors, m, p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ptxas_summary(reports):
+    """One line per kernel of ptxas's ``-v`` reports: registers, stack
+    and spills (names demangled by ``c++filt`` where it exists)."""
+    import re
+    out = []
+    for src, text in sorted(reports.items()):
+        name, regs = None, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                regs = m.groups()
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                try:
+                    name = subprocess.run(
+                        ["c++filt", name], capture_output=True, text=True,
+                        timeout=10).stdout.strip() or name
+                except OSError:
+                    pass
+                stack, st, ld = regs or ("?", "?", "?")
+                name = name.replace("(anonymous namespace)::", "")
+                name = name.replace("void ", "").split("(")[0]
+                out.append(f"{src}.cu {name}: {m.group(1)} "
+                           f"registers, {stack} B stack, {st} B spill "
+                           f"stores, {ld} B spill loads")
+                name, regs = None, None
+    return out
 
 
 def main() -> int:
@@ -813,8 +1410,11 @@ def main() -> int:
     _build.build(KERNELS)         # one nvcc per source, all at once
     print(f"build: {', '.join(k + '.cu' for k in KERNELS)} in parallel -> "
           f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_summary(_build.PTXAS):
+        print(f"ptxas: {line}")
     if "--profile" in sys.argv[1:]:
-        profile_steps(torch, gpu)
+        for arch in ("qwen2_7b", "recurrentgemma_9b", "xlstm_350m"):
+            profile_steps(torch, gpu, arch)
         return 0
 
     # ---- phase 2: kernel vs plain version on the card ----------------
@@ -878,69 +1478,57 @@ def main() -> int:
     t0 = time.perf_counter()
     attn_err, report = check_attention(torch)
     for line in report:
-        print(f"[{gpu}] attention kernel vs plain, max |diff|: {line}")
+        print(f"[{gpu}] attention kernel vs plain: {line}")
     print(f"[{gpu}] attention kernels vs plain (tolerance {ATTN_TOL}): ok,"
           f" {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
 
-    # ---- phase 6: the serving path -----------------------------------
-    sv = serving_path(torch)
-    s = sv["summary"]
-    cfg = sv["cfg"]
-    ch_tok = sv["computed_tokens"]
-    ch_s = sum(c[4] for c in sv["chunks"])
-    dec_ms = [d[4] * 1e3 for d in sv["decodes"]]
-    full = [d[4] * 1e3 for d in sv["decodes"] if d[3] == MAX_BATCH]
-    print(f"[{gpu}] serving: {cfg.name} {cfg.n_layers} layers d_model "
-          f"{cfg.d_model} {sv['n_params'] / 1e9:.2f} B params (bf16, seeded "
-          f"on the card in {sv['init_s']:.1f} s); {ENGINES} engines x "
-          f"max_batch {MAX_BATCH} x max_len {MAX_LEN}, chunk {CHUNK}, "
-          f"LMetric router; {s['n']} of {N_SERVE} requests served in "
-          f"{sv['wall_s']:.1f} s wall")
-    print(f"[{gpu}] serving: TTFT mean {s['ttft_mean'] * 1e3:.1f} ms p50 "
-          f"{s['ttft_p50'] * 1e3:.1f} p95 {s['ttft_p95'] * 1e3:.1f} | TPOT "
-          f"mean {s['tpot_mean'] * 1e3:.2f} ms p95 {s['tpot_p95'] * 1e3:.2f}"
-          f" | SLO attainment {s['slo_attainment']:.3f} | virtual time "
-          f"from measured step walls, makespan {s['makespan']:.2f} s")
-    print(f"[{gpu}] serving: {len(sv['chunks'])} prefill chunks, "
-          f"{ch_tok} tokens computed at {ch_tok / ch_s:.0f} tokens/s of "
-          f"prefill step wall; {sv['prompt_tokens']} prompt tokens, "
-          f"{sv['prompt_tokens'] - ch_tok} skipped by KV$ fragments; "
-          f"reported hit tokens {sv['hit_tokens']}; requests per instance "
-          f"{dict(sorted(sv['instances'].items()))}; of the "
-          f"{N_SERVE - 4} shared-prefix requests, {sv['placed_hot']} placed "
-          f"where their system prompt was routed before (all hit >= "
-          f"{SYS_PREFIX}), {sv['placed_cold']} elsewhere by load")
-    mid = [c[4] * 1e3 for c in sv["chunks"] if c[2] == CHUNK and not c[5]]
-    last = [c[4] * 1e3 for c in sv["chunks"] if c[5]]
-    print(f"[{gpu}] serving: prefill step wall, median: full {CHUNK}-token "
-          f"chunk that does not end its prompt {np.median(mid):.2f} ms "
-          f"({len(mid)} chunks; a first chunk after a hit includes the "
-          f"fragment's upload); chunk that ends its prompt "
-          f"{np.median(last):.2f} ms ({len(last)}; includes the fragment's "
-          f"copy to the host)")
-    print(f"[{gpu}] serving: {len(dec_ms)} decode steps, median "
-          f"{float(np.median(dec_ms)):.2f} ms (with all {MAX_BATCH} slots "
-          f"running: {len(full)} steps, median "
-          f"{float(np.median(full)) if full else float('nan'):.2f} ms); "
-          f"peak device memory {sv['peak'] / 2 ** 30:.2f} GiB")
-    print(f"[{gpu}] serving: attention launches {sv['launches']} = "
-          f"{cfg.n_layers} layers x ({len(sv['chunks'])} chunks | "
-          f"{len(sv['decodes'])} decode steps + {ENGINES} warm-ups)")
-    for c in sv["logit_checks"]:
-        print(f"[{gpu}] serving: engine (hit {sv['check_hit']} tokens) vs "
-              f"plain full forward, step {c['step']}: max |dlogit| "
-              f"{c['max_abs']:.4f}, RMS ratio {c['rel_rms']:.4f}, argmax "
-              f"equal {c['argmax_equal']} (tolerance {LOGIT_ATOL}, "
-              f"{LOGIT_REL_RMS})")
+    # ---- phases 8-9: recurrent kernels and hd 256 attention vs plain --
+    t0 = time.perf_counter()
+    rec_err, report = check_recurrent(torch)
+    hd256_err, report2 = check_attention_hd256(torch)
+    for line in report + report2:
+        print(f"[{gpu}] kernel vs plain: {line}")
+    print(f"[{gpu}] recurrent kernels (tolerance {REC_TOL}) and hd-256 "
+          f"attention (tolerance {ATTN_TOL}) vs plain: ok, "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, err in hd256_err.items():
+        attn_err[name] = max(attn_err[name], err)
 
-    # ---- phase 7: attention timings at the serving shapes -------------
+    # ---- phases 6, 10, 11: the serving paths --------------------------
+    # the Qwen2-7B path's depth is cut first if the run nears its limit
+    qwen_layers = None
+    if time.perf_counter() - t_start > QWEN_CUT_AFTER_S:
+        qwen_layers = QWEN_CUT_LAYERS
+        print(f"serving: Qwen2-7B cut from 28 to {qwen_layers} layers to "
+              f"stay within the time limit (width unchanged)")
+    served = {}
+    for arch, layers in (("qwen2_7b", qwen_layers),
+                         ("recurrentgemma_9b", None), ("xlstm_350m", None)):
+        sv = serving_path(torch, arch, n_layers=layers)
+        # free the model before the next is loaded: the engines' logged
+        # steps are reference cycles, which only a collection frees
+        gc.collect()
+        torch.cuda.empty_cache()
+        report_serving(gpu, sv)
+        served[arch] = sv
+
+    # ---- phases 7 and 12: kernel timings at the serving shapes -------
     ta = time_attention(torch)
     for shape, t in ta.items():
         print(f"[{gpu}] {shape}: kernel {t['ms'] * 1e3:.1f} us, plain "
               f"{t['plain_ms'] * 1e3:.1f} us, library (SDPA yardstick) "
               f"{t['library_ms'] * 1e3:.1f} us; bound {t['bound_ms'] * 1e3:.2f}"
               f" us ({t['bound_by']}: {t['bytes']} B, {t['ops']} ops)")
+    tr = time_recurrent(torch)
+    for name, t in tr.items():
+        lib = ("no single PyTorch call computes this function"
+               if t["library_ms"] is None else
+               f"library (SDPA yardstick) {t['library_ms'] * 1e3:.1f} us")
+        print(f"[{gpu}] {name} {t['shape']}: kernel {t['ms'] * 1e3:.1f} us, "
+              f"plain {t['plain_ms'] * 1e3:.1f} us, {lib}; bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {t['bytes']} "
+              f"B, {t['ops']} ops)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
@@ -954,14 +1542,18 @@ def main() -> int:
         "ms": tw["kernel_ms"], "plain_ms": tw["plain_ms"],
         "bound_ms": tw["bound_ms"], "bound_by": tw["bound_by"],
         "library_ms": None}]}
+    # the attention kernels' launches are those of every serving path
+    # that runs them; their times are at Qwen2-7B's shapes (hd 256 above)
     for name, t, line in (("prefill_attention", pre_t, 28),
-                          ("paged_attention", dec_t, 29)):
+                          ("paged_attention", dec_t, 29),
+                          ("rglru_scan", tr["rglru_scan"], 25),
+                          ("mlstm_cell", tr["mlstm_cell"], 25)):
         record["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": sv["launches"][name],
-            "max_abs_err": attn_err[name], "ms": t["ms"],
+            "launches": sum(sv["launches"][name] for sv in served.values()),
+            "max_abs_err": {**attn_err, **rec_err}[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps(record))

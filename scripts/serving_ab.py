@@ -1,0 +1,165 @@
+"""Compare checkouts of the repo on one serving path, back to back on one
+card, and time the ways an engine slot can be copied to the host.
+
+Each argument is the root of a checkout (this repo, or an older commit
+unpacked with ``git archive`` into a directory that ``.gitignore``
+lists).  In the order given, each runs in a process of its own: it builds
+its own kernels (``chip_smoke.KERNELS``, into its own ``build/``), runs
+its ``chip_smoke.serving_path`` for ``--arch`` (Qwen2-7B by default) and
+prints one JSON line: TTFT and TPOT, the median walls of a full prefill
+chunk that does not end its prompt, of a chunk that ends it (which copies
+the prompt's fragment to the host) and of a decode step.  Give the trees
+as A, B, B, A so that drift of the host shows.
+
+Then, in this process, one Qwen2-7B slot of an engine (28 layers of K and
+V rows, 4096 x 4 x 128 bf16 each: 235 MB) is copied to the host five
+ways and back two ways (median of 5, host wall, synchronised): each leaf
+on its own (56 copies), the slot of a stacked (layers, slots, ...) cache
+(2 copies), every leaf gathered into one flat device buffer and copied
+once, and that flat buffer into newly allocated or into reused pinned
+host memory.  Every copy to the host is kept until the way's last
+repetition, as a prefix store keeps its fragments, so that each one
+lands in memory that no earlier copy freed.
+
+Run on a machine with a CUDA card, from the repo root:
+
+    python3 scripts/serving_ab.py build/ab/parent . . build/ab/parent
+
+With no checkout given, only the slot copies are timed.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+import chip_smoke as c
+from repro_torch.kernels import _build
+_build.build(c.KERNELS)
+sv = c.serving_path(torch, sys.argv[1])
+s = sv["summary"]
+chunks, decodes = sv["chunks"], sv["decodes"]
+med = lambda v: float(np.median(v)) if v else None
+print("RESULT " + json.dumps({
+    "arch": sys.argv[1], "requests": s["n"], "wall_s": sv["wall_s"],
+    "ttft_mean_ms": s["ttft_mean"] * 1e3, "ttft_p50_ms": s["ttft_p50"] * 1e3,
+    "ttft_p95_ms": s["ttft_p95"] * 1e3, "tpot_mean_ms": s["tpot_mean"] * 1e3,
+    "mid_chunk_ms": med([x[4] * 1e3 for x in chunks
+                         if x[2] == c.CHUNK and not x[5]]),
+    "end_chunk_ms": med([x[4] * 1e3 for x in chunks if x[5]]),
+    "decode_ms": med([x[4] * 1e3 for x in decodes]),
+    "n_chunks": len(chunks), "n_decodes": len(decodes)}))
+"""
+
+
+def run_tree(root, arch):
+    root = os.path.abspath(root)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.path.join(root, "src")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CHILD, arch], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise SystemExit(f"{root}: exit {proc.returncode}")
+    line = next(x for x in proc.stdout.splitlines()
+                if x.startswith("RESULT "))
+    out = json.loads(line[len("RESULT "):])
+    out.update(tree=root, process_s=time.perf_counter() - t0)
+    return out
+
+
+def time_slot_copies(reps=5):
+    import numpy as np
+    import torch
+    L, S, KV, HD, B = 28, 4096, 4, 128, 2
+    dev = torch.device("cuda")
+    layers = [{n: torch.randn((B, S, KV, HD), device=dev).to(torch.bfloat16)
+               for n in ("k", "v")} for _ in range(L)]
+    leaves = [t for c in layers for t in c.values()]
+    stacked = {n: torch.stack([c[n] for c in layers]) for n in ("k", "v")}
+    nbytes = sum(t[0].numel() * t.element_size() for t in leaves)
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def gather():
+        flat = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        off = 0
+        for t in leaves:
+            n = t[0].numel() * t.element_size()
+            flat[off:off + n].view(t.dtype).view(t.shape[1:]).copy_(t[1])
+            off += n
+        return flat
+
+    def fresh_pinned():
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        host.copy_(gather())
+        return host
+
+    ways = {
+        "each leaf to pageable host memory (56 copies)":
+            lambda: [t[1].to("cpu", copy=True) for t in leaves],
+        "slot of a stacked cache to pageable host memory (2 copies)":
+            lambda: [stacked[n][:, 1].to("cpu", copy=True)
+                     for n in ("k", "v")],
+        "flat device gather, one copy to pageable host memory":
+            lambda: gather().cpu(),
+        "flat device gather, one copy to new pinned host memory":
+            fresh_pinned,
+        "flat device gather, one copy to reused pinned host memory":
+            lambda: pinned.copy_(gather()),
+    }
+    host_leaves = [t[1].cpu() for t in leaves]
+    host_flat = gather().cpu()
+
+    def restore_flat():
+        flat, off = host_flat.to(dev), 0
+        for t in leaves:
+            n = t[0].numel() * t.element_size()
+            t[0].copy_(flat[off:off + n].view(t.dtype).view(t.shape[1:]))
+            off += n
+
+    back = {
+        "each leaf from pageable host memory (56 copies)":
+            lambda: [t[0].copy_(h) for t, h in zip(leaves, host_leaves)],
+        "one copy of the flat buffer, then 56 device copies":
+            restore_flat,
+    }
+    out = {}
+    for name, fn in list(ways.items()) + list(back.items()):
+        walls, kept = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept.append(fn())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = float(np.median(walls[1:])) * 1e3
+        del kept
+    return nbytes, out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="*", help="checkout roots, in run order")
+    ap.add_argument("--arch", default="qwen2_7b")
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}")
+    for root in args.trees:
+        print(json.dumps(run_tree(root, args.arch)), flush=True)
+    nbytes, copies = time_slot_copies()
+    for name, ms in copies.items():
+        print(f"[{card}] slot of {nbytes} bytes, {name}: {ms:.2f} ms "
+              f"(median of 5)")
+
+
+if __name__ == "__main__":
+    main()

@@ -2,12 +2,13 @@
 
 Each submodule exports ``config() -> ModelConfig`` with the reference's
 hyper-parameters.  ``get_config(name)`` resolves by id; the ``-smoke``
-suffix gives the reduced smoke-test variant.  The port carries the two
-dense attention-only models its engine serves: the paper's Qwen2-7B
-testbed and Qwen3-4B (qk-norm, tied embeddings), whose smoke variant the
-reference's engine tests use.  Every other id of the reference raises
-``NotImplementedError``: its block kinds or experts are not ported yet
-(ROADMAP Queue A).
+suffix gives the reduced smoke-test variant.  The port carries the
+models its engine serves: the paper's Qwen2-7B testbed, Qwen3-4B
+(qk-norm, tied embeddings), whose smoke variant the reference's engine
+tests use, and the two recurrent families, RecurrentGemma-9B (RG-LRU and
+sliding-window attention) and xLSTM-350M (mLSTM and sLSTM).  Every other
+id of the reference raises ``NotImplementedError``: its block kinds or
+experts are not ported yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -15,12 +16,12 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ("qwen2_7b", "qwen3_4b")
+ARCH_IDS = ("qwen2_7b", "qwen3_4b", "recurrentgemma_9b", "xlstm_350m")
 
 #: ids of the reference that the port does not serve yet
-NOT_PORTED = ("xlstm_350m", "paligemma_3b", "yi_6b", "recurrentgemma_9b",
-              "whisper_medium", "deepseek_67b", "arctic_480b",
-              "granite_moe_3b_a800m", "minicpm_2b", "qwen3_30b_moe")
+NOT_PORTED = ("paligemma_3b", "yi_6b", "whisper_medium", "deepseek_67b",
+              "arctic_480b", "granite_moe_3b_a800m", "minicpm_2b",
+              "qwen3_30b_moe")
 
 
 def _norm(name: str) -> str:

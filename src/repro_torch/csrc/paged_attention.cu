@@ -20,6 +20,12 @@
 // HBM bandwidth bounds it.  This first version runs B x KV x ceil(G/16)
 // blocks (32 at the engine's B = 8, Qwen2-7B), one per SM; splitting the
 // context across blocks (split-K) is the next step.
+//
+// Head dim 256 in f32 (RecurrentGemma's local attention, in the checks)
+// gives each warp one tile buffer instead of two: two would need 270 KB
+// of shared memory, above the 227 KB a block can have.  ptxas -v: the
+// bf16 kernel at head dim 256 uses 254 registers without spilling; the
+// f32 one spills 284 bytes.
 #include <cuda_runtime.h>
 
 #include "attention_tile.cuh"
@@ -32,11 +38,18 @@ using attn::Elem;
 constexpr int NK = 16;   // keys per tile
 constexpr int NW = 4;    // warps per block
 
+// tile buffers per warp: two (loads overlap the previous tile's math),
+// one where two do not fit
+template <int HD, typename T>
+__host__ __device__ constexpr int n_buf() {
+  return Elem<T>::SPLIT && HD > 128 ? 1 : 2;
+}
+
 template <int HD, typename T>
 constexpr size_t tile_bytes() {
-  // NW warps x 2 buffers x (K, V) x (hi, lo for f32) x NK x (HD + 8)
-  return size_t(NW) * 2 * 2 * (Elem<T>::SPLIT ? 2 : 1) * NK * (HD + 8) *
-         sizeof(bf16);
+  // NW warps x buffers x (K, V) x (hi, lo for f32) x NK x (HD + 8)
+  return size_t(NW) * n_buf<HD, T>() * 2 * (Elem<T>::SPLIT ? 2 : 1) * NK *
+         (HD + 8) * sizeof(bf16);
 }
 
 template <int HD>
@@ -63,6 +76,7 @@ __global__ void __launch_bounds__(NW * 32)
   constexpr int PLANE = NK * LD;
   constexpr int NPL = SPLIT ? 2 : 1;
   constexpr int STAGE = 2 * NPL * PLANE;           // K and V of one buffer
+  constexpr int NBUF = n_buf<HD, T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sm = reinterpret_cast<bf16*>(smem_raw);
 
@@ -86,7 +100,7 @@ __global__ void __launch_bounds__(NW * 32)
   const int ctx = max(0, min(context_lens[b], pages_per_seq * page));
   const int n_t = (ctx + NK - 1) / NK;
   const int* table = block_tables + (long long)b * pages_per_seq;
-  bf16* mine = sm + warp * 2 * STAGE;
+  bf16* mine = sm + warp * NBUF * STAGE;
 
   auto load_tile = [&](int t, int buf) {
     bf16* st = mine + buf * STAGE;
@@ -108,12 +122,16 @@ __global__ void __launch_bounds__(NW * 32)
 
   attn::RowState<HD> state;
   state.init();
-  if (warp < n_t) {
+  if (NBUF == 2 && warp < n_t) {
     load_tile(warp, 0);
     attn::cp_async_commit();
   }
   for (int i = 0, t = warp; t < n_t; ++i, t += NW) {
-    if (t + NW < n_t) {
+    if (NBUF == 1) {
+      load_tile(t, 0);
+      attn::cp_async_commit();
+      attn::cp_async_wait<0>();
+    } else if (t + NW < n_t) {
       load_tile(t + NW, (i + 1) & 1);
       attn::cp_async_commit();
       attn::cp_async_wait<1>();
@@ -121,7 +139,7 @@ __global__ void __launch_bounds__(NW * 32)
       attn::cp_async_wait<0>();
     }
     __syncwarp();
-    const bf16* st = mine + (i & 1) * STAGE;
+    const bf16* st = mine + (NBUF == 1 ? 0 : (i & 1)) * STAGE;
     auto mask = [&](int, int key) { return t * NK + key < ctx; };
     attn::tile_update<HD, NK, SPLIT>(qa, ql, st, st + PLANE,
                                      st + NPL * PLANE,
@@ -216,6 +234,14 @@ extern "C" int paged_attention_launch(int dtype, int hd, const void* q,
                                       int pages_per_seq, float scale,
                                       cudaStream_t stream) {
   if (B == 0) return 0;
+  if (dtype == 1 && hd == 256)
+    return launch<256, bf16>(q, k_pages, v_pages, block_tables,
+                             context_lens, out, B, H, KV, page,
+                             pages_per_seq, scale, stream);
+  if (dtype == 0 && hd == 256)
+    return launch<256, float>(q, k_pages, v_pages, block_tables,
+                              context_lens, out, B, H, KV, page,
+                              pages_per_seq, scale, stream);
   if (dtype == 1 && hd == 128)
     return launch<128, bf16>(q, k_pages, v_pages, block_tables,
                              context_lens, out, B, H, KV, page,

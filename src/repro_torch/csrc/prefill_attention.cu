@@ -23,6 +23,14 @@
 // version uses mma.sync m16n8k16 (not wgmma/TMA): f32 accumulation and
 // softmax in registers, P rounded to bf16 for the PV product.  Tiles run
 // heaviest first (later rows see more keys).
+//
+// Head dim 256 (RecurrentGemma's local attention) takes 32-key tiles: a
+// warp's 16 rows then hold 128 f32 output accumulators and 64 registers
+// of Q fragments per lane (128 for the f32 split), and the f32 split's
+// two 64-key buffers of K and V would need 270 KB of shared memory, above
+// the 227 KB a block can have (135 KB at 32 keys).  ptxas -v: the bf16
+// kernel uses 255 registers without spilling; the f32 one spills 796
+// bytes (it runs only in the checks).
 #include <cuda_runtime.h>
 
 #include "attention_tile.cuh"
@@ -32,15 +40,20 @@ namespace {
 using attn::bf16;
 using attn::Elem;
 
-constexpr int BK = 64;       // keys per tile
 constexpr int NW = 4;        // warps per block
 constexpr int ROWS = 16 * NW;
+
+// keys per tile
+template <int HD>
+__host__ __device__ constexpr int key_tile() {
+  return HD > 128 ? 32 : 64;
+}
 
 template <int HD, typename T>
 constexpr size_t smem_bytes() {
   // 2 buffers x (K, V) x (hi, lo for f32) x BK x (HD + 8)
-  return size_t(2) * 2 * (Elem<T>::SPLIT ? 2 : 1) * BK * (HD + 8) *
-         sizeof(bf16);
+  return size_t(2) * 2 * (Elem<T>::SPLIT ? 2 : 1) * key_tile<HD>() *
+         (HD + 8) * sizeof(bf16);
 }
 
 template <int HD, typename T>
@@ -50,6 +63,7 @@ __global__ void __launch_bounds__(NW * 32)
                    T* __restrict__ out, int Sq, int Sk, int H, int KV,
                    long long kv_bstride, int window, float scale) {
   constexpr bool SPLIT = Elem<T>::SPLIT;
+  constexpr int BK = key_tile<HD>();
   constexpr int LD = HD + 8;
   constexpr int PLANE = BK * LD;                    // one [BK][LD] tile
   constexpr int NPL = SPLIT ? 2 : 1;                // hi (+ lo)
@@ -181,6 +195,12 @@ extern "C" int prefill_attention_launch(int dtype, int hd, const void* q,
                                         long long kv_bstride, int window,
                                         float scale, cudaStream_t stream) {
   if (B == 0 || Sq == 0) return 0;
+  if (dtype == 1 && hd == 256)
+    return launch<256, bf16>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
+                             kv_bstride, window, scale, stream);
+  if (dtype == 0 && hd == 256)
+    return launch<256, float>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
+                              kv_bstride, window, scale, stream);
   if (dtype == 1 && hd == 128)
     return launch<128, bf16>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
                              kv_bstride, window, scale, stream);

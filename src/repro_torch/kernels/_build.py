@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: flags of one source on top of ``NVCC_FLAGS``.  ``-fmad=false`` is
 #: load-bearing for route_score only: that kernel reproduces the host's
@@ -36,6 +36,9 @@ SOURCE_FLAGS = {"route_score": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: ptxas's report (``-Xptxas -v``: registers, shared memory and spills of
+#: every kernel) of each source built by this process
+PTXAS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -97,6 +100,7 @@ def _compile(names: Sequence[str]):
                 errors.append(f"nvcc failed on {name}.cu "
                               f"(exit {proc.returncode}):\n{err}")
             else:
+                PTXAS[name] = err
                 os.replace(tmp, library_path(name))
         if errors:
             raise RuntimeError("\n".join(errors))

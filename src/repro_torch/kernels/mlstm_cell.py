@@ -1,0 +1,159 @@
+"""Fused mLSTM chunk cell — port of ``repro.kernels.mlstm_cell``
+(``mlstm_chunk``).
+
+One stabilised chunkwise-parallel mLSTM step per (batch, head): the
+(L, L) intra-chunk decay and score matrix, the inter-chunk term from the
+carried matrix memory ``C``, ``n`` and ``m``, and the end-of-chunk state
+update.  ``models.recurrent.mlstm_prefill`` chains it over the chunks of
+a prompt, exactly like the reference's chunkwise scan.
+
+For tensors on a CUDA device :func:`mlstm_chunk` launches the
+hand-written kernel ``csrc/mlstm_cell.cu`` (four kernels on one stream,
+f32 CUDA-core products; one launch of the wrapper counts once); for CPU
+tensors it runs :func:`mlstm_chunk_plain`, the reference's oracle
+``ref.mlstm_chunk_ref`` as plain PyTorch ops.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+
+#: kernel launches since the last reset (CUDA tensors only)
+LAUNCHES = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the gate pass keeps b and i of a chunk in shared memory
+_MAX_L = 4096
+
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _check(q, k, v, ilog, flog, C0, n0, m0):
+    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
+            or tuple(v.shape) != tuple(q.shape):
+        raise ValueError("mlstm_chunk: q, k, v must be one (B, L, H, hd) "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, L, H, hd = q.shape
+    want = {"ilog": (ilog, (B, L, H)), "flog": (flog, (B, L, H)),
+            "C0": (C0, (B, H, hd, hd)), "n0": (n0, (B, H, hd)),
+            "m0": (m0, (B, H))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"mlstm_chunk: {name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    if len({t.device for t in (q, k, v, ilog, flog, C0, n0, m0)}) != 1:
+        raise ValueError("mlstm_chunk: inputs lie on different devices")
+
+
+def mlstm_chunk_plain(q, k, v, ilog, flog, C0, n0, m0
+                      ) -> Tuple[torch.Tensor, State]:
+    """The function as plain PyTorch ops (``ref.mlstm_chunk_ref``).
+    Returns h (B, L, H, hd) in ``q.dtype`` and the f32 state (C, n, m)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ilog, flog = ilog.float(), flog.float()
+    C0, n0, m0 = C0.float(), n0.float(), m0.float()
+    b = torch.cumsum(flog, dim=1)                             # (B, L, H)
+    dmat = b[:, :, None] - b[:, None, :, :] + ilog[:, None, :, :]
+    L = dmat.shape[1]
+    tidx = torch.arange(L, device=q.device)
+    causal = (tidx[:, None] >= tidx[None, :])[None, :, :, None]
+    dmat = torch.where(causal, dmat, NEG_INF)                 # (B, L, L, H)
+    inter = b + m0[:, None]
+    m_t = torch.maximum(inter, dmat.amax(dim=2))
+    w_intra = torch.exp(dmat - m_t[:, :, None])
+    w_inter = torch.exp(inter - m_t)
+    scores = torch.einsum("blhd,bshd->blsh", qf, kf) * w_intra
+    h_num = (torch.einsum("blsh,bshd->blhd", scores, vf)
+             + torch.einsum("blhd,bhde->blhe", qf, C0) * w_inter[..., None])
+    denom = (scores.sum(dim=2)
+             + torch.einsum("blhd,bhd->blh", qf, n0) * w_inter)
+    denom = torch.maximum(denom.abs(), torch.exp(-m_t))
+    h = h_num / denom[..., None]
+    bL = b[:, -1]
+    m_new = torch.maximum(bL + m0, (bL[:, None] - b + ilog).amax(dim=1))
+    w_old = torch.exp(bL + m0 - m_new)
+    w_src = torch.exp(bL[:, None] - b + ilog - m_new[:, None])
+    C = (C0 * w_old[..., None, None]
+         + torch.einsum("blh,blhd,blhe->bhde", w_src, kf, vf))
+    n = n0 * w_old[..., None] + torch.einsum("blh,blhd->bhd", w_src, kf)
+    return h.to(q.dtype), (C, n, m_new)
+
+
+_P = ctypes.c_void_p
+
+
+def _fn():
+    fn = _build.load("mlstm_cell").mlstm_cell_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [_P] * 14 + [ctypes.c_int] * 4
+                       + [_P])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k, v, ilog, flog, C0, n0, m0):
+    global LAUNCHES
+    B, L, H, hd = q.shape
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("mlstm_chunk kernel: q, k, v must share one dtype "
+                         f"of float32/bfloat16, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    f32 = {"ilog": ilog, "flog": flog, "C0": C0, "n0": n0, "m0": m0}
+    for name, t in f32.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"mlstm_chunk kernel: {name} must be float32, "
+                             f"got {t.dtype}")
+    for name, t in dict(q=q, k=k, v=v, **f32).items():
+        if not t.is_contiguous():
+            raise ValueError(f"mlstm_chunk kernel: {name} must be "
+                             "contiguous")
+    if L > _MAX_L:
+        raise ValueError(f"mlstm_chunk kernel takes chunks of at most "
+                         f"{_MAX_L} positions, got {L}")
+    if max(B * L * H * hd, B * H * hd * hd, B * H * L * L) >= 2 ** 31:
+        raise ValueError("mlstm_chunk kernel: tensors too large")
+    h = torch.empty_like(q)
+    C = torch.empty_like(C0)
+    n = torch.empty_like(n0)
+    m = torch.empty_like(m0)
+    rows = torch.empty(B * H * (4 * L + 1), dtype=torch.float32,
+                       device=q.device)
+    S = torch.empty((B, H, L, L), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _fn()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), ilog.data_ptr(), flog.data_ptr(),
+                   C0.data_ptr(), n0.data_ptr(), m0.data_ptr(), h.data_ptr(),
+                   C.data_ptr(), n.data_ptr(), m.data_ptr(), rows.data_ptr(),
+                   S.data_ptr(), B, L, H, hd,
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mlstm_cell kernel launch failed: cudaError "
+                           f"{rc}")
+    LAUNCHES += 1
+    return h, (C, n, m)
+
+
+def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                ilog: torch.Tensor, flog: torch.Tensor, C0: torch.Tensor,
+                n0: torch.Tensor, m0: torch.Tensor
+                ) -> Tuple[torch.Tensor, State]:
+    """q, k, v: (B, L, H, hd); ilog, flog: (B, L, H); C0: (B, H, hd, hd);
+    n0: (B, H, hd); m0: (B, H).  Returns (h (B, L, H, hd) in ``q.dtype``,
+    (C, n, m) in float32).
+
+    CUDA tensors launch the kernel (contiguous; q/k/v float32 or bfloat16,
+    the gates and the state float32); CPU tensors run
+    :func:`mlstm_chunk_plain`."""
+    _check(q, k, v, ilog, flog, C0, n0, m0)
+    if q.device.type == "cpu":
+        return mlstm_chunk_plain(q, k, v, ilog, flog, C0, n0, m0)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_chunk runs on cuda or cpu, not {q.device}")
+    return _launch(q, k, v, ilog, flog, C0, n0, m0)

@@ -28,7 +28,7 @@ NEG_INF = -1e30
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _check(q, k_pages, v_pages, block_tables, context_lens):
@@ -136,9 +136,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     block_tables: (B, pages_per_seq) int32; context_lens: (B,) int32.
     Returns (B, H, hd) in ``q.dtype``.
 
-    CUDA tensors launch the kernel (head dims 64 and 128; the block table's
-    entries must index ``k_pages``, which the kernel does not check); CPU
-    tensors run :func:`paged_attention_plain`."""
+    CUDA tensors launch the kernel (head dims 64, 128 and 256; the block
+    table's entries must index ``k_pages``, which the kernel does not
+    check); CPU tensors run :func:`paged_attention_plain`."""
     _check(q, k_pages, v_pages, block_tables, context_lens)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,

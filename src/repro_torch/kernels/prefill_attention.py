@@ -31,7 +31,7 @@ NEG_INF = -1e30
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _check(q, k, v, kv_offset, window):
@@ -130,7 +130,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     prefix + chunk; kv_offset: (B,) int32 cached-prefix lengths; window:
     sliding window or None.  Returns (B, Sq, H, hd) in ``q.dtype``.
 
-    CUDA tensors launch the kernel (head dims 64 and 128; k/v may be a
+    CUDA tensors launch the kernel (head dims 64, 128 and 256; k/v may be a
     batch-strided view such as a slice of a longer cache); CPU tensors
     run :func:`flash_prefill_plain`."""
     _check(q, k, v, kv_offset, window)

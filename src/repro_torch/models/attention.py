@@ -1,10 +1,10 @@
 """GQA attention: prefill, cached chunked prefill and cached decode — port
-of ``repro.models.attention`` for the ``attn`` block kind.
+of ``repro.models.attention`` for the ``attn`` and ``swa`` block kinds.
 
 ``attn_prefill`` (the plain full forward, the reference for the engine
 path) keeps the reference's dense and blockwise scaled-dot-product
-attention as plain PyTorch.  The two serving entry points go through the
-port's kernels:
+attention as plain PyTorch, both with the sliding window of ``swa``.
+The two serving entry points go through the port's kernels:
 
 * ``attn_prefill_cached`` writes the chunk's K/V into the cache and calls
   ``kernels.prefill_attention.flash_prefill`` on the cache's first
@@ -12,19 +12,34 @@ port's kernels:
   attends over the whole buffer under a ``j < cache_len`` mask plus the
   chunk; the function is the same, only the order of the keys inside the
   softmax differs.
-* ``attn_decode`` writes the new K/V at ``min(pos, S-1)`` and calls
-  ``kernels.paged_attention.paged_attention`` on the slot cache viewed as
-  pages: slot b of a ``(B, S, KV, hd)`` cache is pages ``b*P .. b*P+P-1``
-  of its free ``(B*S/page, page, KV, hd)`` view, with
-  ``context_lens = min(pos, S-1) + 1`` — the reference's ``j <= pos``.
+* For ``swa`` the cache is a ring of ``W = min(window, max_len)`` rows
+  (position ``a`` in slot ``a % W``).  The chunk's keys are the ring's
+  last ``kept = min(cache_len, W)`` positions, rolled into position
+  order, then the chunk: ``flash_prefill`` with ``kv_offset = kept`` and
+  the window (its mask is shift-invariant).  Only then is the chunk
+  written into the ring: written first, a wrapping chunk would overwrite
+  keys its earlier queries still see.
+* ``attn_decode`` writes the new K/V at ``min(pos, S-1)`` (``swa``:
+  ``pos % W``) and calls ``kernels.paged_attention.paged_attention`` on
+  the slot cache viewed as pages: slot b of a ``(B, S, KV, hd)`` cache is
+  pages ``b*P .. b*P+P-1`` of its free ``(B*S/page, page, KV, hd)`` view,
+  with ``context_lens = min(pos, S-1) + 1`` — the reference's
+  ``j <= pos``, and for the ring its ``abs_j >= 0`` (decode softmax does
+  not depend on the order of the keys).
 
-Both update the cache tensors in place (the reference returns new ones).
-``swa`` and ``xattn`` blocks are not ported.
+The reference's ``swa`` cached prefill masks its ring on the positions
+the slots would hold had the ring been filled, so while
+``0 < cache_len < W`` it also attends to ring slots never written (zero,
+or a stored fragment's tail) and differs from its own full forward
+(ROADMAP Queue C.10).  The port computes the full forward's function.
+
+Both serving entry points update the cache tensors in place (the
+reference returns new ones).  ``xattn`` blocks are not ported.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
@@ -44,7 +59,7 @@ NEG_INF = -1e30
 
 
 def _check_kind(kind: str):
-    if kind != "attn":
+    if kind not in ("attn", "swa"):
         raise NotImplementedError(f"attention kind {kind!r} is not ported to "
                                   "repro_torch yet (ROADMAP Queue A)")
 
@@ -98,8 +113,9 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _blockwise_sdpa(q, k, v, positions, kv_chunk=KV_CHUNK):
-    """Causal online-softmax attention over KV chunks of ``kv_chunk``.
+def _blockwise_sdpa(q, k, v, positions, window=None, kv_chunk=KV_CHUNK):
+    """Causal (optionally windowed) online-softmax attention over KV
+    chunks of ``kv_chunk``.
 
     q, k, v: (B, S, ·, hd); positions: (B, S) absolute positions.  The
     queries are scaled by 1/sqrt(hd) in their own dtype before the product
@@ -129,7 +145,10 @@ def _blockwise_sdpa(q, k, v, positions, kv_chunk=KV_CHUNK):
         kc, vc, pc = ks[:, c], vs[:, c], kpos[:, c]
         s = torch.einsum("bqkgh,bskh->bkgqs", qf, kc.float())
         pcb = pc[:, None, None, None, :]
-        s = torch.where(qp >= pcb, s, NEG_INF)
+        seen = qp >= pcb
+        if window is not None:
+            seen &= (qp - pcb) < window
+        s = torch.where(seen, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -149,39 +168,106 @@ def _blockwise_sdpa(q, k, v, positions, kv_chunk=KV_CHUNK):
 def attn_prefill(p, x, positions, cfg: ModelConfig,
                  kind: str) -> Tuple[torch.Tensor, Tuple]:
     """The plain full forward.  Returns (y, (k, v)) with k/v the prompt's
-    (B, S, KV, hd) cache entries."""
+    (B, S, KV, hd) cache entries; for ``swa`` the last ``window`` keys as a
+    (B, window, KV, hd) ring (slot ``pos % window``, unwritten slots 0)."""
     _check_kind(kind)
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
+    window = cfg.window_size if kind == "swa" else None
     if S > BLOCKWISE_THRESHOLD:
-        y = _blockwise_sdpa(q, k, v, positions)
+        y = _blockwise_sdpa(q, k, v, positions, window)
     else:
-        mask = positions[:, :, None] >= positions[:, None, :]
+        i, j = positions[:, :, None], positions[:, None, :]
+        mask = i >= j
+        if window is not None:
+            mask &= (i - j) < window
         y = _sdpa(q, k, v, mask)
     y = linear(p["wo"], y.reshape(B, S, -1))
-    return y, (k, v)
+    if window is None:
+        return y, (k, v)
+    W = window
+    if S >= W:
+        kw, vw, wpos = k[:, -W:], v[:, -W:], positions[:, -W:]
+    else:
+        kw = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, W - S))
+        vw = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, W - S))
+        wpos = torch.nn.functional.pad(positions, (0, W - S), value=-1)
+    # ring order: slot = pos % W; padding goes to a scratch slot W
+    slot = torch.where(wpos >= 0, wpos % W, W).long()
+    bidx = torch.arange(B, device=x.device)[:, None]
+    kr = k.new_zeros((B, W + 1) + tuple(k.shape[2:]))
+    vr = v.new_zeros((B, W + 1) + tuple(v.shape[2:]))
+    kr[bidx, slot] = kw
+    vr[bidx, slot] = vw
+    return y, (kr[:, :W], vr[:, :W])
+
+
+def prefill_plan(kind: str, lens: Sequence[int], Sc: int, S: int,
+                 device) -> Dict[str, Any]:
+    """What a chunk of ``Sc`` tokens after cached lengths ``lens`` (host
+    ints, one per row) attends over in a cache of ``S`` rows, computed
+    once per chunk for every layer of ``kind``.
+
+    ``attn``: the cache's first ``kv_len = max(lens) + Sc`` rows with
+    ``kv_offset = lens``.  ``swa`` (a ring of ``W = S`` rows): row b keeps
+    its last ``kept_b = min(lens_b, W)`` ring positions; ``index`` (B, Sk)
+    picks, from the ring followed by the chunk, those positions in order
+    and then the chunk (``Sk = max(kept) + Sc``; rows past a shorter row's
+    end repeat its last token, masked by causality), with
+    ``kv_offset = kept``."""
+    if kind == "attn":
+        kv_len = max(lens) + Sc
+        if kv_len > S:
+            raise ValueError(f"cache_len + chunk = {kv_len} exceeds the "
+                             f"cache length {S}")
+        return {"kv_offset": torch.tensor(lens, dtype=torch.int32,
+                                          device=device), "kv_len": kv_len}
+    _check_kind(kind)
+    kept = [min(n, S) for n in lens]
+    Sk = max(kept) + Sc
+    j = torch.arange(Sk, device=device)[None]
+    kept_t = torch.tensor(kept, device=device)[:, None]
+    start = torch.tensor([n - k for n, k in zip(lens, kept)],
+                         device=device)[:, None]
+    index = torch.where(j < kept_t, (start + j) % S,
+                        S + torch.clamp(j - kept_t, 0, Sc - 1))
+    return {"kv_offset": torch.tensor(kept, dtype=torch.int32,
+                                      device=device), "index": index}
 
 
 def attn_prefill_cached(p, x, positions, cfg: ModelConfig, kind: str,
                         cache_k: torch.Tensor, cache_v: torch.Tensor,
-                        kv_offset: torch.Tensor, kv_len: int):
+                        plan: Dict[str, Any]):
     """Chunked prefill continuing a cache (the engine's hot path: a KV$ hit
     skips compute because only the chunk's new tokens are processed).
 
     x: (B, S_c, D) chunk; positions: (B, S_c) absolute, equal to
-    ``kv_offset[b] + arange(S_c)``; cache_k/cache_v: (B, S, KV, hd),
-    written in place at ``positions``; kv_offset: (B,) int32 cached-prefix
-    lengths on x's device; kv_len: ``max(kv_offset) + S_c`` (<= S), the
-    cache rows the chunk attends over.  Returns y (B, S_c, D)."""
+    ``cache_len[b] + arange(S_c)``; cache_k/cache_v: (B, S, KV, hd) (for
+    ``swa`` the ring), written in place at the chunk's positions (``swa``:
+    ``pos % S``); plan: ``prefill_plan(kind, cache_len, S_c, S)``.
+    Returns y (B, S_c, D)."""
     _check_kind(kind)
     B, Sc, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     S = cache_k.shape[1]
     bidx = torch.arange(B, device=x.device)[:, None]
-    slot = torch.clamp_max(positions, S - 1).long()
-    cache_k[bidx, slot] = k
-    cache_v[bidx, slot] = v
-    y = flash_prefill(q, cache_k[:, :kv_len], cache_v[:, :kv_len], kv_offset)
+    if kind == "attn":
+        slot = torch.clamp_max(positions, S - 1).long()
+        cache_k[bidx, slot] = k
+        cache_v[bidx, slot] = v
+        kv_len = plan["kv_len"]
+        y = flash_prefill(q, cache_k[:, :kv_len], cache_v[:, :kv_len],
+                          plan["kv_offset"])
+    else:
+        idx = plan["index"]
+        ks = torch.cat([cache_k, k], dim=1)[bidx, idx]
+        vs = torch.cat([cache_v, v], dim=1)[bidx, idx]
+        y = flash_prefill(q, ks, vs, plan["kv_offset"], cfg.window_size)
+        # the ring keeps the chunk's last S positions
+        tail = slice(max(0, Sc - S), Sc)
+        slot = (positions[:, tail] % S).long()
+        cache_k[bidx, slot] = k[:, tail]
+        cache_v[bidx, slot] = v[:, tail]
     return linear(p["wo"], y.reshape(B, Sc, -1))
 
 
@@ -200,19 +286,22 @@ def attn_decode(p, x, pos: torch.Tensor, cfg: ModelConfig, kind: str,
                 block_tables: torch.Tensor):
     """One-token decode.  x: (B, 1, D); pos: (B,) absolute position of the
     new token; cache_k/cache_v: (B, S, KV, hd), written in place at
-    ``min(pos, S-1)``; block_tables: ``decode_tables(B, S)``.  Returns
-    y (B, 1, D)."""
+    ``min(pos, S-1)`` (``swa``: the ring, at ``pos % S``); block_tables:
+    ``decode_tables(B, S)``.  Returns y (B, 1, D)."""
     _check_kind(kind)
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None])
     S = cache_k.shape[1]
     bidx = torch.arange(B, device=x.device)
-    slot = torch.clamp_max(pos, S - 1).long()
+    if kind == "attn":
+        slot = torch.clamp_max(pos, S - 1).long()
+    else:
+        slot = (pos % S).long()
     cache_k[bidx, slot] = k_new[:, 0]
     cache_v[bidx, slot] = v_new[:, 0]
     pages = (B * S // DECODE_PAGE, DECODE_PAGE, KV, hd)
-    ctx = (slot + 1).to(torch.int32)
+    ctx = (torch.clamp_max(pos, S - 1) + 1).to(torch.int32)
     y = paged_attention(q[:, 0], cache_k.view(pages), cache_v.view(pages),
                         block_tables, ctx)
     return linear(p["wo"], y.reshape(B, 1, H * hd))

@@ -5,10 +5,13 @@ kinds, compiled into a *repeating unit* (``repeating_unit``) — the layout
 of the reference's stacked parameters, which ``models.convert`` unstacks.
 The dataclass keeps every field of the reference so a configuration is
 the same object in both packages; the port's ``Model`` serves the
-attention-only dense patterns and refuses the rest.
+dense and recurrent patterns (``attn``, ``swa``, ``rglru``, ``mlstm``,
+``slstm``) and refuses the rest.
 
-Block kinds: ``attn`` (full causal GQA attention + FFN), ``swa``,
-``rglru``, ``mlstm``, ``slstm``, ``xattn`` (not served by the port yet).
+Block kinds: ``attn`` (full causal GQA attention + FFN), ``swa``
+(sliding-window attention over a ring-buffer cache + FFN), ``rglru``
+(Griffin's RG-LRU + FFN), ``mlstm`` / ``slstm`` (xLSTM), ``xattn`` (not
+served by the port yet).
 """
 from __future__ import annotations
 
@@ -88,6 +91,10 @@ class ModelConfig:
         return -(-self.vocab_size // 16) * 16
 
     @property
+    def resolved_d_rnn(self) -> int:
+        return self.d_rnn or self.d_model
+
+    @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
@@ -152,3 +159,7 @@ class ModelConfig:
 
 def dense_pattern(n: int) -> Tuple[str, ...]:
     return ("attn",) * n
+
+
+def hybrid_pattern(n: int, unit=("rglru", "rglru", "attn")) -> Tuple[str, ...]:
+    return tuple(unit[i % len(unit)] for i in range(n))

@@ -1,26 +1,36 @@
-"""Dense attention-only model — port of ``repro.models.model`` for the
-patterns the serving engine runs (every block ``attn``, dense FFN).
+"""Block-pattern model — port of ``repro.models.model`` for the patterns
+the serving engine runs: ``attn`` and ``swa`` attention blocks with a
+dense FFN, RG-LRU blocks (RecurrentGemma), and mLSTM / sLSTM blocks
+(xLSTM).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``lm_head``
 (absent when embeddings are tied) and ``layers``, a list of per-layer
 block dicts in the reference's block layout (``models.convert`` unstacks
-the reference's scan-stacked parameters into it).  The KV cache is
-``{"k", "v"}``, each ``(n_layers, B, max_len, KV, hd)``.
+the reference's scan-stacked parameters into it).  The cache is a list
+with one dict per layer, every leaf batch-major:
+
+* ``attn``: ``{"k", "v"}``, each ``(B, max_len, KV, hd)``;
+* ``swa``: ``{"k", "v"}``, each ``(B, W, KV, hd)``, a ring of
+  ``W = min(window, max_len)`` rows;
+* ``rglru``: ``{"h", "conv"}``; ``mlstm``: ``{"C", "n", "m"}``;
+  ``slstm``: ``{"c", "n", "m", "h"}`` (``models.recurrent``, float32).
 
 Three entry points, as in the reference:
 
-* ``prefill`` — the plain full forward (dense or blockwise attention as
-  plain PyTorch), the reference the engine path is held against;
+* ``prefill`` — the plain full forward (plain attention, and the plain
+  versions of the recurrent kernels), the reference the engine path is
+  held against;
 * ``prefill_cached`` — one chunk continuing a cache, through the
-  ``flash_prefill`` kernel (the engine's prefill);
+  ``flash_prefill``, ``rglru_scan`` and ``mlstm_chunk`` kernels (the
+  engine's prefill); recurrent blocks resume from their state, as in the
+  reference, whatever ``cache_len`` says;
 * ``decode_step`` — one token per sequence, through the
   ``paged_attention`` kernel (the engine's decode).
 
 The two cached entry points update the cache in place and return the
-same dict.  Logits are f32, sliced to ``vocab_size``; the lm-head product
-runs in the parameter dtype.  Not ported: MoE, recurrent blocks, sliding
-window and cross attention, the encoder, VLM inputs, logit soft-capping
-and ``forward_train``.
+same list.  Logits are f32, sliced to ``vocab_size``; the lm-head product
+runs in the parameter dtype.  Not ported: MoE, cross attention, the
+encoder, VLM inputs, logit soft-capping and ``forward_train``.
 
 ``Model(cfg, device="cuda")`` needs a card; ``device="cpu"`` runs the
 kernels' plain versions.
@@ -28,20 +38,28 @@ kernels' plain versions.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 import torch
 
 from ..core.indicators import resolve_device
 from . import attention as attn
+from . import recurrent as rec
 from .config import ModelConfig
 from .layers import (embed_apply, ffn_apply, init_embed, init_ffn,
                      init_linear, init_norm, linear, norm_apply)
 
+#: block kinds the port serves
+SERVED_KINDS = ("attn", "swa", "rglru", "mlstm", "slstm")
+ATTN_KINDS = ("attn", "swa")
+
+Cache = List[Dict[str, torch.Tensor]]
+
 
 def _unsupported(cfg: ModelConfig) -> str:
-    if any(k != "attn" for k in cfg.block_pattern):
-        return f"block kinds {sorted(set(cfg.block_pattern))}"
+    kinds = sorted(set(cfg.block_pattern) - set(SERVED_KINDS))
+    if kinds:
+        return f"block kinds {kinds}"
     if cfg.n_experts:
         return "MoE"
     if cfg.is_encdec or cfg.n_patches:
@@ -69,6 +87,26 @@ class Model:
         self._tables: Dict[tuple, torch.Tensor] = {}
 
     # -------------------------------------------------------------- init
+    def _init_block(self, gen, kind: str) -> Dict[str, Any]:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        p: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, dt, dev,
+                                                cfg.norm_type)}
+        if kind in ATTN_KINDS:
+            p["attn"] = attn.init_attention(gen, cfg, kind)
+            d_ff, act = cfg.d_ff, cfg.ffn_act
+        elif kind == "rglru":
+            p["rglru"] = rec.init_rglru(gen, cfg)
+            d_ff, act = cfg.d_ff, cfg.ffn_act
+        elif kind == "mlstm":
+            p["mlstm"] = rec.init_mlstm(gen, cfg)
+            return p
+        else:
+            p["slstm"] = rec.init_slstm(gen, cfg)
+            d_ff, act = max(4 * cfg.d_model // 3, 64), "geglu"
+        p["norm2"] = init_norm(cfg.d_model, dt, dev, cfg.norm_type)
+        p["ffn"] = init_ffn(gen, cfg.d_model, d_ff, dt, act)
+        return p
+
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random parameters with the reference's distributions, drawn from
         ``generator`` (which must live on the model's device)."""
@@ -84,21 +122,25 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = init_linear(generator, cfg.d_model,
                                             cfg.padded_vocab_size, dt)
-        params["layers"] = [
-            {"norm1": init_norm(cfg.d_model, dt, dev, cfg.norm_type),
-             "attn": attn.init_attention(generator, cfg, "attn"),
-             "norm2": init_norm(cfg.d_model, dt, dev, cfg.norm_type),
-             "ffn": init_ffn(generator, cfg.d_model, cfg.d_ff, dt,
-                             cfg.ffn_act)}
-            for _ in range(cfg.n_layers)]
+        params["layers"] = [self._init_block(generator, kind)
+                            for kind in cfg.block_pattern]
         return params
 
-    def init_cache(self, B: int, max_len: int) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
-        shp = (cfg.n_layers, B, max_len, cfg.n_kv_heads,
-               cfg.resolved_head_dim)
-        return {"k": torch.zeros(shp, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shp, dtype=self.dtype, device=self.device)}
+    def init_cache(self, B: int, max_len: int) -> Cache:
+        """Zero K/V caches and the reference's initial recurrent states
+        (``m = -1e30``)."""
+        cfg, dev = self.cfg, self.device
+        KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        out: Cache = []
+        for kind in cfg.block_pattern:
+            if kind in ATTN_KINDS:
+                S = max_len if kind == "attn" else min(cfg.window_size,
+                                                       max_len)
+                out.append({n: torch.zeros((B, S, KV, hd), dtype=self.dtype,
+                                           device=dev) for n in ("k", "v")})
+            else:
+                out.append(getattr(rec, f"{kind}_init_state")(B, cfg, dev))
+        return out
 
     # ----------------------------------------------------------- helpers
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -109,6 +151,9 @@ class Model:
         if self.cfg.scale_embed:
             x = x * math.sqrt(self.cfg.d_model)
         return x
+
+    def _norm1(self, p, x):
+        return norm_apply(p["norm1"], x, self.cfg.norm_eps)
 
     def _ffn(self, p, x):
         cfg = self.cfg
@@ -124,76 +169,110 @@ class Model:
             logits = linear(params["lm_head"], x)
         return logits.float()[..., :cfg.vocab_size]
 
+    def _recurrent(self, p, kind, x, state, mode, plain=False):
+        """One recurrent block (prefill or decode) -> (x, new state)."""
+        cfg = self.cfg
+        h = self._norm1(p, x)
+        if mode == "decode":
+            y, st = getattr(rec, f"{kind}_decode")(p[kind], h, state, cfg)
+        elif kind == "slstm":
+            y, st = rec.slstm_prefill(p[kind], h, cfg, state)
+        else:
+            y, st = getattr(rec, f"{kind}_prefill")(p[kind], h, cfg, state,
+                                                    plain=plain)
+        x = x + y
+        if kind != "mlstm":
+            x = x + self._ffn(p, x)
+        return x, st
+
+    @staticmethod
+    def _store(entry: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
+        for name, t in new.items():
+            entry[name].copy_(t)
+
     # ---------------------------------------------------------- serving
     def prefill(self, params, tokens: torch.Tensor, positions=None,
                 last_only: bool = False):
         """Plain full forward.  tokens: (B, S).  Returns (logits, cache)
-        with the cache sized to the prompt; ``last_only`` computes the
+        with attention caches sized to the prompt (``swa``: its ring) and
+        the recurrent states after the prompt; ``last_only`` computes the
         lm-head logits of the last position only."""
         cfg = self.cfg
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, device=self.device).expand(B, S)
         x = self._embed(params, tokens)
-        ks, vs = [], []
-        for p in params["layers"]:
-            h, (k, v) = attn.attn_prefill(
-                p["attn"], norm_apply(p["norm1"], x, cfg.norm_eps),
-                positions, cfg, "attn")
-            x = x + h
-            x = x + self._ffn(p, x)
-            ks.append(k)
-            vs.append(v)
+        cache: Cache = []
+        for p, kind in zip(params["layers"], cfg.block_pattern):
+            if kind in ATTN_KINDS:
+                h, (k, v) = attn.attn_prefill(p["attn"], self._norm1(p, x),
+                                              positions, cfg, kind)
+                x = x + h
+                x = x + self._ffn(p, x)
+                cache.append({"k": k, "v": v})
+            else:
+                x, st = self._recurrent(p, kind, x, None, "prefill",
+                                        plain=True)
+                cache.append(st)
         if last_only:
             x = x[:, -1:]
-        return self._logits(params, x), {"k": torch.stack(ks),
-                                         "v": torch.stack(vs)}
+        return self._logits(params, x), cache
 
     def prefill_cached(self, params, tokens: torch.Tensor,
-                       positions: torch.Tensor, cache,
+                       positions: torch.Tensor, cache: Cache,
                        cache_len: Sequence[int], last_only: bool = False):
         """Chunked prefill continuing ``cache`` (the engine's hot path).
 
         tokens: (B, S_c); positions: (B, S_c) absolute, equal to
         ``cache_len[b] + arange(S_c)``; cache_len: (B,) host ints (or a
-        tensor), the valid prefix already in the cache.  The chunk's K/V
-        are written into ``cache`` in place.  Returns (logits, cache)."""
+        tensor), the valid prefix already in the attention caches.  The
+        chunk's K/V and the recurrent states are written into ``cache`` in
+        place.  Returns (logits, cache)."""
         cfg = self.cfg
         lens = [int(c) for c in torch.as_tensor(cache_len).reshape(-1)]
         Sc = tokens.shape[1]
-        kv_len = max(lens) + Sc
-        if kv_len > cache["k"].shape[2]:
-            raise ValueError(f"cache_len + chunk = {kv_len} exceeds the "
-                             f"cache length {cache['k'].shape[2]}")
-        kv_offset = torch.tensor(lens, dtype=torch.int32, device=self.device)
+        plans: Dict[str, Dict[str, Any]] = {}
+        for entry, kind in zip(cache, cfg.block_pattern):
+            if kind in ATTN_KINDS and kind not in plans:
+                plans[kind] = attn.prefill_plan(
+                    kind, lens, Sc, entry["k"].shape[1], self.device)
         positions = positions.to(self.device)
         x = self._embed(params, tokens)
-        for i, p in enumerate(params["layers"]):
-            x = x + attn.attn_prefill_cached(
-                p["attn"], norm_apply(p["norm1"], x, cfg.norm_eps),
-                positions, cfg, "attn", cache["k"][i], cache["v"][i],
-                kv_offset, kv_len)
-            x = x + self._ffn(p, x)
+        for p, kind, entry in zip(params["layers"], cfg.block_pattern,
+                                  cache):
+            if kind in ATTN_KINDS:
+                x = x + attn.attn_prefill_cached(
+                    p["attn"], self._norm1(p, x), positions, cfg, kind,
+                    entry["k"], entry["v"], plans[kind])
+                x = x + self._ffn(p, x)
+            else:
+                x, st = self._recurrent(p, kind, x, entry, "prefill")
+                self._store(entry, st)
         if last_only:
             x = x[:, -1:]
         return self._logits(params, x), cache
 
     def decode_step(self, params, token: torch.Tensor, pos: torch.Tensor,
-                    cache):
+                    cache: Cache):
         """token: (B, 1); pos: (B,) absolute position of the new token.
-        The new K/V are written into ``cache`` in place.  Returns
-        (logits (B, 1, V), cache)."""
+        The new K/V and the recurrent states are written into ``cache`` in
+        place.  Returns (logits (B, 1, V), cache)."""
         cfg = self.cfg
-        B, S = cache["k"].shape[1], cache["k"].shape[2]
-        tables = self._tables.get((B, S))
-        if tables is None:
-            tables = attn.decode_tables(B, S, self.device)
-            self._tables[(B, S)] = tables
         pos = pos.to(self.device)
         x = self._embed(params, token)
-        for i, p in enumerate(params["layers"]):
-            x = x + attn.attn_decode(
-                p["attn"], norm_apply(p["norm1"], x, cfg.norm_eps), pos, cfg,
-                "attn", cache["k"][i], cache["v"][i], tables)
-            x = x + self._ffn(p, x)
+        for p, kind, entry in zip(params["layers"], cfg.block_pattern,
+                                  cache):
+            if kind in ATTN_KINDS:
+                B, S = entry["k"].shape[:2]
+                tables = self._tables.get((B, S))
+                if tables is None:
+                    tables = attn.decode_tables(B, S, self.device)
+                    self._tables[(B, S)] = tables
+                x = x + attn.attn_decode(
+                    p["attn"], self._norm1(p, x), pos, cfg, kind,
+                    entry["k"], entry["v"], tables)
+                x = x + self._ffn(p, x)
+            else:
+                x, st = self._recurrent(p, kind, x, entry, "decode")
+                self._store(entry, st)
         return self._logits(params, x), cache

@@ -1,20 +1,28 @@
 """Serving engine: continuous batching, chunked prefill and prefix-cache KV$
 reuse under the LMetric router — port of ``repro.serving.engine``.
 
-One ``InstanceEngine`` owns a slot-based KV cache (``max_batch`` slots ×
-``max_len``), runs chunked prefill through ``Model.prefill_cached`` (the
-``flash_prefill`` kernel) and one batched decode step over all slots
+One ``InstanceEngine`` owns a slot-based cache (``max_batch`` slots:
+``max_len`` K/V rows per ``attn`` layer, a ring per ``swa`` layer, a state
+per recurrent layer), runs chunked prefill through
+``Model.prefill_cached`` (the ``flash_prefill``, ``rglru_scan`` and
+``mlstm_chunk`` kernels) and one batched decode step over all slots
 through ``Model.decode_step`` (the ``paged_attention`` kernel).  A
-host-side ``PrefixStore`` keeps KV fragments keyed by block-hash chains:
-on a KV$ hit the fragment is copied into the slot and only the suffix
-tokens are prefilled — the paper's compute skip, for real.  As in the
-reference a fragment is the whole slot (every layer, ``max_len`` rows),
-copied to host memory, and the decode step runs all ``max_batch`` slots.
+host-side ``PrefixStore`` keeps fragments keyed by block-hash chains: on
+a KV$ hit the fragment is copied into the slot and only the suffix tokens
+are prefilled — the paper's compute skip, for real.  As in the reference
+a fragment is the whole slot (every leaf of every layer) after the whole
+prompt, gathered into one flat buffer and copied to host memory in one
+copy, stored with the length of the prompt's full blocks, and the decode
+step runs all ``max_batch`` slots.  For a recurrent layer the fragment
+is the state after the whole prompt, so a hit on a prompt that does not
+end on a block boundary, or on the whole of a stored prompt, runs the
+stored tail's tokens through the state a second time; the port keeps
+that reference behaviour (ROADMAP Queue C.9).
 
-Slot surgery is done in place: admitting a request zeroes its slot
-(``zero_``) and a hit copies the fragment into it (``copy_``); the model's
-cached entry points write the cache in place too.  The reference rebuilds
-immutable cache pytrees instead.
+Slot surgery is done in place over every leaf of the cache: admitting a
+request zeroes its slot (``zero_``) and a hit copies the fragment into it
+(``copy_``); the model's cached entry points write the cache in place
+too.  The reference rebuilds immutable cache pytrees instead.
 
 ``EngineCluster`` wires N engines to the port's ``core.Router`` under the
 reference's virtual-time event loop, whose step durations are the
@@ -111,9 +119,42 @@ class InstanceEngine:
         self._pos = np.zeros(max_batch, np.int64)
 
     # ------------------------------------------------------------------
+    def _leaves(self):
+        for entry in self.cache:
+            yield from entry.values()
+
     def _slot_view(self, b: int):
-        return {"k": self.cache["k"][:, b:b + 1],
-                "v": self.cache["v"][:, b:b + 1]}
+        return [{name: t[b:b + 1] for name, t in entry.items()}
+                for entry in self.cache]
+
+    def _frag_views(self, flat: torch.Tensor):
+        """Each cache leaf's slot as a view of the flat byte buffer
+        ``flat``, every leaf at a 16-byte aligned offset."""
+        views, off = [], 0
+        for t in self._leaves():
+            n = t[0].numel() * t.element_size()
+            views.append(flat[off:off + n].view(t.dtype).view(t.shape[1:]))
+            off += -(-n // 16) * 16
+        return views
+
+    def _snapshot(self, b: int) -> torch.Tensor:
+        """Slot ``b`` as one host buffer: every leaf gathered into one flat
+        buffer on the device, then one copy to the host (the gather is a
+        copy, so on the CPU too the fragment never aliases the slot that
+        the next request overwrites)."""
+        n = sum(-(-t[0].numel() * t.element_size() // 16) * 16
+                for t in self._leaves())
+        flat = torch.empty(n, dtype=torch.uint8, device=self.device)
+        for view, t in zip(self._frag_views(flat), self._leaves()):
+            view.copy_(t[b])
+        return flat.cpu()
+
+    def _restore(self, b: int, frag: torch.Tensor):
+        """Copy a fragment into slot ``b``: one copy to the device, then
+        each leaf from its view."""
+        flat = frag.to(self.device)
+        for view, t in zip(self._frag_views(flat), self._leaves()):
+            t[b].copy_(view)
 
     def _prefill(self, tokens: np.ndarray, start: int, b: int
                  ) -> torch.Tensor:
@@ -152,8 +193,8 @@ class InstanceEngine:
             return seq
         slot = self.free_slots.pop(0)
         seq.slot = slot
-        self.cache["k"][:, slot].zero_()
-        self.cache["v"][:, slot].zero_()
+        for t in self._leaves():
+            t[slot].zero_()
         # prefix-cache hit: inject fragment, skip its compute
         blocks = tuple(tokens_to_blocks(seq.tokens.tolist(),
                                         self.block_size))
@@ -163,8 +204,7 @@ class InstanceEngine:
             # prompt hit re-processes just the final token
             usable = min(length, len(seq.tokens) - 1)
             if usable > 0:
-                self.cache["k"][:, slot].copy_(frag[0])
-                self.cache["v"][:, slot].copy_(frag[1])
+                self._restore(slot, frag)
                 seq.pos = usable
                 seq.req.hit_tokens = usable
         return seq
@@ -199,12 +239,9 @@ class InstanceEngine:
                 blocks = tuple(tokens_to_blocks(
                     seq.tokens.tolist(), self.block_size))
                 if blocks:
-                    # a copy even on the CPU, where .to("cpu") would alias
-                    # the slot that the next request overwrites
-                    frag = (self.cache["k"][:, seq.slot].to("cpu", copy=True),
-                            self.cache["v"][:, seq.slot].to("cpu", copy=True))
                     self.prefix_store.insert(
-                        blocks, frag, len(blocks) * self.block_size)
+                        blocks, self._snapshot(seq.slot),
+                        len(blocks) * self.block_size)
                 if seq.generated >= seq.req.output_len:
                     self._finish(seq, events)
         elif self.running:
@@ -237,8 +274,8 @@ class InstanceEngine:
         self._prefill(np.zeros(n, np.int64), 0, 0)
         self._decode(np.zeros(self.max_batch, np.int64),
                      np.zeros(self.max_batch, np.int64)).argmax(-1).cpu()
-        self.cache["k"].zero_()
-        self.cache["v"].zero_()
+        for t in self._leaves():
+            t.zero_()
 
 
 # ---------------------------------------------------------------------------

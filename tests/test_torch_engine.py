@@ -13,6 +13,17 @@
   and hits the shared prefix; the engine's chunked, cached path gives the
   plain full forward's greedy tokens; a second serve of one prompt hits
   its prefix and emits the same tokens.
+* The recurrent families (``recurrentgemma_9b-smoke``, ``xlstm_350m-smoke``,
+  float32) in lockstep with the JAX engine, including hits on a stored
+  recurrent state whose prompt has a tail past its last full block: the
+  reference runs that tail through the state a second time (ROADMAP
+  Queue C.9) and the port gives the reference's tokens.  RecurrentGemma's
+  hits and chunks start at 0 or at the smoke window (64) or past it,
+  where the reference's ``swa`` cached prefill is right (Queue C.10);
+  chunks and a hit below the window, where the port computes the
+  reference's full forward instead, are held to JAX's ``Model.prefill``.
+  Both clusters also route alike under the fake clock, xLSTM through the
+  ``exact_only`` router.
 """
 import dataclasses
 
@@ -22,6 +33,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+import jax.numpy as jnp  # noqa: E402
 import repro.serving.engine as j_engine_mod  # noqa: E402
 import repro_torch.serving.engine as t_engine_mod  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
@@ -38,9 +50,9 @@ from repro_torch.serving.engine import EngineCluster, InstanceEngine  # noqa: E4
 MARGIN = 1e-3
 
 
-def _pair(dtype):
-    jc = dataclasses.replace(j_get_config("qwen3_4b-smoke"), dtype=dtype)
-    tc = dataclasses.replace(get_config("qwen3_4b-smoke"), dtype=dtype)
+def _pair(dtype, name="qwen3_4b-smoke"):
+    jc = dataclasses.replace(j_get_config(name), dtype=dtype)
+    tc = dataclasses.replace(get_config(name), dtype=dtype)
     jm = JModel(jc)
     jp = jm.init(jax.random.key(0))
     tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp))
@@ -271,10 +283,10 @@ def test_prefix_hit_preserves_output(bf16_pair):
     assert seq2.req.hit_tokens >= 48, "second serve must hit the prefix"
     assert out1 == out2, "cache-hit serve must be exact"
     # stored fragments are host copies, never views of a live slot
-    cache_mem = eng.cache["k"].untyped_storage().data_ptr()
+    cache_mem = {t.untyped_storage().data_ptr() for c in eng.cache
+                 for t in c.values()}
     for frag, _ in eng.prefix_store._store.values():
-        assert all(t.untyped_storage().data_ptr() != cache_mem
-                   for t in frag)
+        assert frag.untyped_storage().data_ptr() not in cache_mem
 
 
 def test_fragment_survives_reuse_of_its_slot(bf16_pair):
@@ -309,3 +321,187 @@ def test_engine_device_must_match_model(bf16_pair):
     _, _, m, params = bf16_pair
     with pytest.raises(ValueError):
         InstanceEngine(m, params, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families
+# ---------------------------------------------------------------------------
+_RPAIRS = {}
+
+
+def _rpair(name):
+    if name not in _RPAIRS:
+        _RPAIRS[name] = _pair("float32", name)
+    return _RPAIRS[name]
+
+
+def _lockstep(jeng, teng, jm, prompts, atol):
+    """Submit ``prompts`` ({step: (rid, tokens)}) to both engines and step
+    them together; returns the two request dicts after both drain."""
+    jlog, tlog = _record(jeng, teng, jm)
+    jreqs, treqs = {}, {}
+    for step in range(400):
+        if step in prompts:
+            rid, toks = prompts[step]
+            out_len = 4 + rid % 3
+            jreqs[rid] = JRequest(rid=rid, arrival=0.0, blocks=(),
+                                  prompt_len=len(toks), output_len=out_len)
+            treqs[rid] = Request(rid=rid, arrival=0.0, blocks=(),
+                                 prompt_len=len(toks), output_len=out_len)
+            jeng.submit(jreqs[rid], toks)
+            teng.submit(treqs[rid], toks)
+        if not jeng.has_work() and step > max(prompts):
+            break
+        jev, tev = jeng.step(), teng.step()
+        for key in ("kind", "prefill_tokens", "decode_bs"):
+            assert jev[key] == tev[key], (step, key)
+        for key in ("first", "finished"):
+            assert [q.req.rid for q in jev[key]] == \
+                [q.req.rid for q in tev[key]], (step, key)
+    assert not teng.has_work() and len(jlog) == len(tlog) >= 12
+    for jl, tl in zip(jlog, tlog):
+        np.testing.assert_allclose(tl, jl, atol=atol, rtol=0)
+        top2 = np.sort(jl, axis=-1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 10 * atol
+        np.testing.assert_array_equal(tl.argmax(-1)[clear],
+                                      jl.argmax(-1)[clear])
+    for rid in treqs:
+        assert treqs[rid].hit_tokens == jreqs[rid].hit_tokens, rid
+    return jreqs, treqs
+
+
+#: logits tolerance of the lockstep, as tests/test_torch_model.py's REC_TOL
+LOCK_TOL = {"recurrentgemma_9b-smoke": 1e-4, "xlstm_350m-smoke": 5e-4}
+
+
+def _recurrent_prompts(name):
+    rng = np.random.RandomState(4)
+    base = rng.randint(4, 500, 70).astype(np.int32)
+    if name.startswith("recurrentgemma"):
+        # hits at 64 tokens (= W): an extension of the 70-token prompt,
+        # then the same prompt again (its 6-token tail counted twice)
+        return {0: (0, base),
+                3: (1, np.concatenate([base, rng.randint(4, 500, 30)])),
+                6: (2, base.copy()),
+                8: (3, rng.randint(4, 500, 40).astype(np.int32)),
+                11: (4, np.concatenate([base[:64], rng.randint(4, 500,
+                                                                 20)]))}
+    short = base[:48].copy()
+    # Motivation's cases: a 48-token prompt served twice (47 hit tokens,
+    # the last token counted twice), a 53-token prompt then that prompt
+    # + 20 (hit 48, tail of 5 counted twice), a 48-token prompt + 20
+    # (an exact hit)
+    p53 = rng.randint(4, 500, 53).astype(np.int32)
+    return {0: (0, short), 4: (1, short.copy()),
+            7: (2, p53), 12: (3, np.concatenate([p53, rng.randint(
+                4, 500, 20)])),
+            15: (4, np.concatenate([short, rng.randint(4, 500, 20)]))}
+
+
+@pytest.mark.parametrize("name", list(LOCK_TOL))
+def test_recurrent_engine_lockstep(name):
+    jm, jp, tm, tp = _rpair(name)
+    kw = dict(max_batch=3, max_len=128, chunk_tokens=64, block_size=16)
+    jeng = j_engine_mod.InstanceEngine(jm, jp, **kw)
+    teng = InstanceEngine(tm, tp, device="cpu", **kw)
+    finished = {}
+    for eng, store in ((jeng, "j"), (teng, "t")):
+        step = eng.step
+
+        def logged(step=step, store=store):
+            ev = step()
+            for q in ev["finished"]:
+                finished[(store, q.req.rid)] = list(q.out_tokens)
+            return ev
+        eng.step = logged
+    prompts = _recurrent_prompts(name)
+    jreqs, treqs = _lockstep(jeng, teng, jm, prompts, LOCK_TOL[name])
+    for rid in treqs:
+        assert finished[("t", rid)] == finished[("j", rid)], rid
+    hits = {rid: treqs[rid].hit_tokens for rid in treqs}
+    if name.startswith("recurrentgemma"):
+        assert hits == {0: 0, 1: 64, 2: 64, 3: 0, 4: 64}
+    else:
+        assert hits == {0: 0, 1: 47, 2: 0, 3: 48, 4: 48}
+
+
+@pytest.mark.parametrize("name", list(LOCK_TOL))
+def test_recurrent_cluster_matches_jax_under_fake_clock(name, monkeypatch):
+    """Both clusters route every arrival alike and report the same hits
+    and virtual times; xLSTM has no KV block, so both routers run
+    ``exact_only``."""
+    jm, jp, tm, tp = _rpair(name)
+    clock = _Clock()
+    monkeypatch.setattr(j_engine_mod, "time", clock)
+    monkeypatch.setattr(t_engine_mod, "time", clock)
+    kw = dict(block_size=16, max_batch=4, max_len=128, chunk_tokens=64)
+    arrivals = _arrivals(n=10, seed=5)
+    jc = j_engine_mod.EngineCluster(3, jm, jp, JLMetricPolicy(), **kw)
+    clock.t = 0.0
+    jdone = jc.run(arrivals)
+    tc = EngineCluster(3, tm, tp, LMetricPolicy(), device="cpu", **kw)
+    clock.t = 0.0
+    tdone = tc.run(arrivals)
+    assert tc.router.factory.exact_only == jc.router.factory.exact_only \
+        == name.startswith("xlstm")
+    assert len(tdone) == len(jdone) == 10
+    jby = {r.rid: r for r in jdone}
+    for r in tdone:
+        j = jby[r.rid]
+        assert (r.sched_to, r.hit_tokens, r.t_first_token, r.t_finish) == \
+            (j.sched_to, j.hit_tokens, j.t_first_token, j.t_finish), r.rid
+
+
+def test_recurrentgemma_engine_below_window_matches_jax_full_forward():
+    """The regime the lockstep leaves out: chunks and a hit at 0 <
+    cache_len < W (the smoke window is 64), where the reference's engine
+    reads ring slots it never wrote (ROADMAP Queue C.10) and the port
+    computes the reference's full forward instead.  Each request's
+    first-token logits and every decode step's (the ring wraps at 64)
+    match JAX's ``Model.prefill`` over the same tokens, and the greedy
+    tokens are the full forward's."""
+    jm, jp, tm, tp = _rpair("recurrentgemma_9b-smoke")
+    atol = LOCK_TOL["recurrentgemma_9b-smoke"]
+    W = tm.cfg.window_size
+    eng = InstanceEngine(tm, tp, device="cpu", max_batch=2, max_len=128,
+                         chunk_tokens=24, block_size=16)
+    rng = np.random.RandomState(6)
+    base = rng.randint(4, 500, 32).astype(np.int32)
+    ext = np.concatenate([base, rng.randint(4, 500, 30)]).astype(np.int32)
+    starts, logs = [], []
+    pre, dec = eng._prefill, eng._decode
+
+    def t_prefill(tokens, start, b):
+        out = pre(tokens, start, b)
+        starts.append(start)
+        logs.append(out[0])
+        return out
+
+    def t_decode(tokens, pos):
+        out = dec(tokens, pos)
+        logs.append(out[next(iter(eng.running))])
+        return out
+
+    eng._prefill, eng._decode = t_prefill, t_decode
+    for rid, prompt, out_len, hit in ((0, base, 3, 0), (1, ext, 5, 32)):
+        req = Request(rid=rid, arrival=0.0, blocks=(),
+                      prompt_len=len(prompt), output_len=out_len)
+        eng.submit(req, prompt)
+        logs.clear()
+        while eng.has_work():
+            ev = eng.step()
+        out = ev["finished"][0].out_tokens
+        assert req.hit_tokens == hit
+        # the chunk that ends the prompt, then one decode step per token
+        got = [logs[-out_len]] + logs[-out_len + 1:]
+        toks = list(prompt)
+        for j, tl in enumerate(got):
+            jl, _ = jm.prefill(jp, jnp.asarray([toks], jnp.int32))
+            jl = np.asarray(jl[0, -1], np.float32)
+            np.testing.assert_allclose(tl.float().numpy(), jl, atol=atol,
+                                       rtol=0)
+            top2 = np.sort(jl)[-2:]
+            if top2[1] - top2[0] > 10 * atol:
+                assert out[j] == int(jl.argmax()), (rid, j)
+            toks.append(out[j])
+    assert starts == [0, 24, 32, 56] and all(0 < s < W for s in starts[1:])

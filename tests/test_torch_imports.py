@@ -44,7 +44,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "models.attention", "models.model", "models.convert",
                 "configs", "configs.qwen2_7b", "configs.qwen3_4b",
                 "serving.block_manager", "serving.engine",
-                "cluster.metrics"):
+                "cluster.metrics", "kernels.rglru_scan",
+                "kernels.mlstm_cell", "models.recurrent",
+                "configs.recurrentgemma_9b", "configs.xlstm_350m"):
         assert f"repro_torch.{mod}" in names, mod
 
 
@@ -91,4 +93,5 @@ def test_serving_entry_points_need_a_card(monkeypatch):
     cluster = EngineCluster(2, cpu_model, params, make_policy("lmetric"),
                             device="cpu", max_len=64)
     assert cluster.router.device.type == "cpu"
-    assert all(e.cache["k"].device.type == "cpu" for e in cluster.engines)
+    assert all(t.device.type == "cpu" for e in cluster.engines
+               for c in e.cache for t in c.values())
