@@ -7,10 +7,14 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (each raises on failure, so any failure exits nonzero):
 
-1. build — print the card's name and power limit, build
-   ``csrc/route_score.cu``, ``prefill_attention.cu`` and
-   ``paged_attention.cu`` with nvcc for sm_90a (one nvcc each, all at
-   once), print the build time;
+1. build — print the card's name and power limit, build every source
+   of ``KERNELS`` (``csrc/route_score.cu``, ``prefill_attention.cu``,
+   ``paged_attention.cu``, ``rglru_scan.cu``, ``mlstm_cell.cu``) with
+   nvcc for sm_90a (one nvcc each, all at once), print the build time
+   and ptxas's registers, static shared memory and spills of every
+   kernel instantiation, and the attention kernels' counts of wgmma
+   (HGMMA), mma.sync (HMMA) and TMA load (UTMALDG) instructions from
+   ``cuobjdump -sass``;
 2. kernel vs plain — the CUDA ``route_score`` kernel against its plain
    PyTorch version on the card, for every kind and ablation, on seeded
    random and forced-tie states at (k, n) in {(24, 32), (64, 1024),
@@ -39,10 +43,14 @@ Phases (each raises on failure, so any failure exits nonzero):
    with a KV$ hit gives the plain full forward's logits for its first
    token and next two decode steps (``LOGIT_ATOL``, ``LOGIT_REL_RMS``);
    prints TTFT/TPOT, prefill tokens/s, decode step times and peak memory;
-7. attention timings — each kernel at the serving path's shapes (CUDA
-   events), its plain version, its bound and one PyTorch library call
-   as a yardstick (``scaled_dot_product_attention``, never used by the
-   port);
+7. attention timings — each kernel at the serving path's shapes: its
+   device time per launch (``torch.profiler``; for decode with cold K/V,
+   rotating over copies of the cache that hold ``COLD_BYTES``, and warm)
+   beside its wrapper's time per call (CUDA events around back-to-back
+   calls), the decode split count and grid, its plain version, its bound
+   and share of it, and one PyTorch library call as a yardstick
+   (``scaled_dot_product_attention``, never used by the port), timed the
+   same ways;
 8. recurrent kernels vs plain — ``rglru_scan`` at (1, 512, 4096) and
    ragged S and D with a non-zero h0; ``mlstm_cell`` at (1, 256, 4, 512),
    at L = 37 from m0 = -1e30 and m0 = 0, and a chain of 4 chunks against
@@ -62,9 +70,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    1024-token system prompts, suffixes of 128-768 tokens) under the
    ``exact_only`` router, ``mlstm_cell`` launches (21 x ceil(n/256) per
    chunk of n tokens) as expected, logits held to the plain forward;
-12. recurrent timings — ``rglru_scan``, ``mlstm_cell`` and the head-dim
-   256 attention at the serving shapes beside their plain versions and
-   bounds.
+12. recurrent timings — ``rglru_scan`` and ``mlstm_cell`` at the serving
+   shapes beside their plain versions and bounds, and the head-dim 256
+   attention timed as in phase 7.
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed);
@@ -399,25 +407,27 @@ N_SERVE, SYS_PREFIX, SUFFIX, OUT_TOKENS, MEAN_GAP_S = 32, 1024, (256, 1536), \
 SEED = 2026
 
 
-def prefill_bound(Sq, off, window=None):
-    """(bytes, operations) of one causal chunk at Qwen2-7B widths in bf16:
-    q, k, v, out read or written once (k/v span off + Sq keys), and 4*hd
-    operations per (query row, head, key it sees) for QK and PV."""
+def prefill_bound(Sq, off, window=None, H=H_Q, KV=H_KV, hd=HEAD_DIM):
+    """(bytes, operations) of one causal chunk in bf16 (Qwen2-7B's widths
+    unless given): q, k, v, out read or written once (k/v span off + Sq
+    keys), and 4*hd operations per (query row, head, key it sees) for QK
+    and PV."""
     Sk = off + Sq
     seen = sum(min(off + i + 1, window or Sk) for i in range(Sq))
-    nbytes = 2 * (2 * Sq * H_Q * HEAD_DIM + 2 * Sk * H_KV * HEAD_DIM) + 4
-    return nbytes, 4 * HEAD_DIM * H_Q * seen
+    nbytes = 2 * (2 * Sq * H * hd + 2 * Sk * KV * hd) + 4
+    return nbytes, 4 * hd * H * seen
 
 
-def paged_bound(ctx, page):
-    """(bytes, operations) of one decode step over contexts ``ctx``: the
-    K/V rows in context, q and out, the block-table entries and context
-    lengths read once; 4*hd operations per (head, key in context)."""
+def paged_bound(ctx, page, H=H_Q, KV=H_KV, hd=HEAD_DIM):
+    """(bytes, operations) of one decode step over contexts ``ctx`` in bf16
+    (Qwen2-7B's widths unless given): the K/V rows in context, q and out,
+    the block-table entries and context lengths read once; 4*hd
+    operations per (head, key in context)."""
     B, total = len(ctx), int(sum(ctx))
     pages = int(sum(-(-int(c) // page) for c in ctx))
-    nbytes = (2 * 2 * total * H_KV * HEAD_DIM + 2 * 2 * B * H_Q * HEAD_DIM
-              + 4 * pages + 4 * B)
-    return nbytes, 4 * HEAD_DIM * H_Q * total
+    nbytes = (2 * 2 * total * KV * hd + 2 * 2 * B * H * hd + 4 * pages
+              + 4 * B)
+    return nbytes, 4 * hd * H * total
 
 
 def _bound(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
@@ -845,6 +855,9 @@ def _leaves(tree):
 
 
 def _events_ms(torch, fn, reps):
+    """Wall of ``reps`` back-to-back calls between two CUDA events, per
+    call: the wrapper's host work as well as the kernel, whichever sets
+    the pace."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -858,74 +871,190 @@ def _events_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def time_attention(torch):
-    """Phase 7: each attention kernel at the serving path's shapes (bf16):
-    CUDA events over many launches after a warm-up, the plain version's
-    time, the bound, and one PyTorch library call for the same function
-    as a yardstick (the port never calls it)."""
+def _device_ms(torch, fns, rounds, tries=3):
+    """Device time per call: ``rounds`` rounds over ``fns`` (one call each)
+    under ``torch.profiler`` after one warm-up round; the time of every
+    kernel and copy the calls ran on the card, summed, over the calls.
+    Rotating over ``fns`` that read distinct copies of their inputs keeps
+    those inputs out of the L2 cache.  Every call runs the same kernels,
+    so a trace in which some kernel's count is not a multiple of the
+    calls has lost events (seen once, for SDPA): it is taken again, up to
+    ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    calls = rounds * len(fns)
+    for _ in range(tries):
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        us, count = collections.Counter(), collections.Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us[e.name] += e.device_time_total
+                count[e.name] += 1
+        if count and all(n % calls == 0 for n in count.values()):
+            return sum(us.values()) / 1e3 / calls
+    raise AssertionError(f"torch.profiler lost device events {tries} times "
+                         f"({dict(count)} over {calls} calls)")
+
+
+#: decode timings rotate over copies of the cache that together hold at
+#: least this many bytes of context (2x the H100's 50 MB L2), so that
+#: each launch finds its K/V cold, as a decode step does after 28-38
+#: layers of weights have passed through L2
+COLD_BYTES = 100e6
+
+
+def _over_group(x, H):
+    """(B, S, KV, hd) K or V as SDPA's (B, H, S, hd): a stride-0 view over
+    the group when KV == 1, else each head repeated G times."""
+    B, S, KV, hd = x.shape
+    xt = x.transpose(1, 2)
+    if KV == 1:
+        return xt.expand(B, H, S, hd)
+    return xt.repeat_interleave(H // KV, dim=1)
+
+
+def time_prefill(torch, rng, Sq, off, H, KV, hd, window=None):
+    """One prefill chunk (bf16): the kernel's device time per launch
+    (profiler) and its wrapper's time per call (CUDA events), the plain
+    version's time, SDPA's device time and wall (boolean mask, K/V
+    expanded over the group) and the bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import prefill_attention as fp
     dev = torch.device("cuda")
-    bf = torch.bfloat16
-    rng = np.random.RandomState(SEED + 2)
-    out = {}
 
     def rand(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)
-                                * 0.5).to(dev, bf)
+                                * 0.5).to(dev, torch.bfloat16)
 
-    # prefill: a 512-token chunk right after a 1024-token KV$ hit, and one
-    # deeper into a long prompt
-    for Sq, off in ((CHUNK, SYS_PREFIX), (CHUNK, 2048)):
-        Sk = off + Sq
-        q, k, v = rand(1, Sq, H_Q, HEAD_DIM), rand(1, Sk, H_KV, HEAD_DIM), \
-            rand(1, Sk, H_KV, HEAD_DIM)
-        offs = torch.full((1,), off, dtype=torch.int32, device=dev)
-        ms = _events_ms(torch, lambda: fp.flash_prefill(q, k, v, offs), 50)
-        plain = _events_ms(torch,
-                           lambda: fp.flash_prefill_plain(q, k, v, offs), 5)
-        G = H_Q // H_KV
-        qt = q.transpose(1, 2)
-        kt = k.transpose(1, 2).repeat_interleave(G, dim=1)
-        vt = v.transpose(1, 2).repeat_interleave(G, dim=1)
-        mask = (torch.arange(Sk, device=dev)[None]
-                <= off + torch.arange(Sq, device=dev)[:, None])
-        lib = _events_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), 20)
-        nbytes, ops = prefill_bound(Sq, off)
-        bound, by = _bound(nbytes, ops)
-        out[f"prefill Sq={Sq} off={off}"] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-            bound_by=by, bytes=nbytes, ops=ops)
-    # decode: all 8 slots of an engine's (8, 4096) cache viewed as pages,
-    # ragged contexts as in a busy decode step
-    S, B = MAX_LEN, MAX_BATCH
-    cache_k, cache_v = rand(B, S, H_KV, HEAD_DIM), rand(B, S, H_KV, HEAD_DIM)
-    pages = (B * S // KV_BLOCK, KV_BLOCK, H_KV, HEAD_DIM)
-    kp, vp = cache_k.view(pages), cache_v.view(pages)
+    Sk = off + Sq
+    q, k, v = rand(1, Sq, H, hd), rand(1, Sk, KV, hd), rand(1, Sk, KV, hd)
+    offs = torch.full((1,), off, dtype=torch.int32, device=dev)
+    run = (lambda: fp.flash_prefill(q, k, v, offs, window))
+    qt = q.transpose(1, 2)
+    kt, vt = _over_group(k, H), _over_group(v, H)
+    qpos = off + torch.arange(Sq, device=dev)[:, None]
+    kpos = torch.arange(Sk, device=dev)[None]
+    mask = (kpos <= qpos) & ((qpos - kpos < window) if window else True)
+    lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask))
+    nbytes, ops = prefill_bound(Sq, off, window, H, KV, hd)
+    bound, by = _bound(nbytes, ops)
+    dev_ms = _device_ms(torch, [run], 20)
+    return dict(
+        shape=f"Sq={Sq} over {off} cached rows, H={H} KV={KV} hd={hd}"
+              + (f" window {window}" if window else ""),
+        ms=dev_ms, wrapper_ms=_events_ms(torch, run, 50),
+        plain_ms=_events_ms(torch, lambda: fp.flash_prefill_plain(
+            q, k, v, offs, window), 5),
+        library_ms=_device_ms(torch, [lib], 10),
+        library_wall_ms=_events_ms(torch, lib, 20), bound_ms=bound,
+        bound_by=by, bytes=nbytes, ops=ops, share=bound / dev_ms)
+
+
+def time_decode(torch, rng, B, S, H, KV, hd, ctx_np):
+    """One decode step over B paged slots of S rows (bf16, page 16,
+    contexts ``ctx_np``): the kernel's device time per launch with cold
+    K/V (rotating over copies of the cache, ``COLD_BYTES``) and warm (one
+    copy), its wrapper's time per call (CUDA events, warm), the split
+    count and grid, the plain version's time, SDPA's the same ways (over
+    the gathered K/V expanded over the group, masked) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    dev = torch.device("cuda")
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * 0.5).to(dev, torch.bfloat16)
+
+    nbytes, ops = paged_bound(ctx_np, KV_BLOCK, H, KV, hd)
+    copies = max(2, int(-(-COLD_BYTES // nbytes)))
+    pages = (B * S // KV_BLOCK, KV_BLOCK, KV, hd)
+    caches = [(rand(B, S, KV, hd).view(pages), rand(B, S, KV, hd).view(pages))
+              for _ in range(copies)]
     bt = torch.arange(B * S // KV_BLOCK, dtype=torch.int32,
                       device=dev).reshape(B, -1)
-    ctx_np = rng.randint(SYS_PREFIX + SUFFIX[0],
-                         SYS_PREFIX + SUFFIX[1] + OUT_TOKENS, B)
-    ctx = torch.from_numpy(ctx_np.astype(np.int32)).to(dev)
-    q = rand(B, H_Q, HEAD_DIM)
-    ms = _events_ms(torch, lambda: pa.paged_attention(q, kp, vp, bt, ctx),
-                    200)
+    ctx = torch.from_numpy(np.asarray(ctx_np, np.int32)).to(dev)
+    q = rand(B, H, hd)
+    runs = [(lambda kp=kp, vp=vp: pa.paged_attention(q, kp, vp, bt, ctx))
+            for kp, vp in caches]
+    splits, grid = pa.launch_config(q, caches[0][0], bt)
+    cold = _device_ms(torch, runs, 10)
+    warm = _device_ms(torch, runs[:1], 20)
+    wrapper = _events_ms(torch, runs[0], 200)
     plain = _events_ms(torch, lambda: pa.paged_attention_plain(
-        q, kp, vp, bt, ctx), 5)
-    G = H_Q // H_KV
-    kt = cache_k.transpose(1, 2).repeat_interleave(G, dim=1)
-    vt = cache_v.transpose(1, 2).repeat_interleave(G, dim=1)
+        q, caches[0][0], caches[0][1], bt, ctx), 5)
+    del caches
+    # SDPA over copies of the slots' K/V put over the group, as many as
+    # hold COLD_BYTES (it reads every row, masked or not)
     mask = (torch.arange(S, device=dev)[None] < ctx[:, None])[:, None, None]
-    lib = _events_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kt, vt, attn_mask=mask), 50)
-    nbytes, ops = paged_bound(ctx_np, KV_BLOCK)
+    lib_kv = []
+    while len(lib_kv) < 2 or sum(t.untyped_storage().nbytes()
+                                 for kv in lib_kv for t in kv) < COLD_BYTES:
+        lib_kv.append((_over_group(rand(B, S, KV, hd), H),
+                       _over_group(rand(B, S, KV, hd), H)))
+    libs = [(lambda kt=kt, vt=vt: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask)) for kt, vt in lib_kv]
+    lib_cold = _device_ms(torch, libs, 10)
+    lib_warm = _device_ms(torch, libs[:1], 20)
+    lib_wall = _events_ms(torch, libs[0], 50)
+    del lib_kv
     bound, by = _bound(nbytes, ops)
-    out[f"decode B={B} contexts {ctx_np.tolist()}"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-        bytes=nbytes, ops=ops)
+    return dict(
+        shape=f"B={B} slots of {S}, H={H} KV={KV} hd={hd}, contexts "
+              f"{list(map(int, ctx_np))}",
+        ms=cold, warm_ms=warm, wrapper_ms=wrapper, copies=copies,
+        splits=splits, grid=grid, plain_ms=plain, library_ms=lib_cold,
+        library_warm_ms=lib_warm, library_wall_ms=lib_wall,
+        bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
+        share=bound / cold)
+
+
+def time_attention(torch):
+    """Phase 7: each attention kernel at the Qwen2-7B serving path's
+    shapes (bf16): a 512-token chunk after a 1024-token KV$ hit and one
+    deeper into a long prompt; a decode step over all 8 slots of an
+    engine's (8, 4096) cache with ragged contexts.  Beside each, the
+    plain version's time, the bound and one PyTorch library call for the
+    same function as a yardstick (the port never calls it)."""
+    rng = np.random.RandomState(SEED + 2)
+    out = {}
+    for Sq, off in ((CHUNK, SYS_PREFIX), (CHUNK, 2048)):
+        out[f"prefill Sq={Sq} off={off}"] = time_prefill(
+            torch, rng, Sq, off, H_Q, H_KV, HEAD_DIM)
+    ctx_np = rng.randint(SYS_PREFIX + SUFFIX[0],
+                         SYS_PREFIX + SUFFIX[1] + OUT_TOKENS, MAX_BATCH)
+    out["decode"] = time_decode(torch, rng, MAX_BATCH, MAX_LEN, H_Q, H_KV,
+                                HEAD_DIM, ctx_np)
     return out
+
+
+def report_attention_timing(gpu, name, t):
+    """Print one attention timing of phases 7 and 12."""
+    line = (f"[{gpu}] {name} {t['shape']}: kernel {t['ms'] * 1e3:.2f} us "
+            f"device per launch")
+    if "warm_ms" in t:
+        line += (f" with cold K/V (rotating over {t['copies']} copies of "
+                 f"the cache), {t['warm_ms'] * 1e3:.2f} warm; splits "
+                 f"{t['splits']}, grid {t['grid']} = "
+                 f"{int(np.prod(t['grid']))} blocks")
+    line += (f"; wrapper {t['wrapper_ms'] * 1e3:.2f} us per call (CUDA "
+             f"events around back-to-back calls); bound "
+             f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {t['bytes']} "
+             f"B, {t['ops']} ops), {t['share']:.1%} of it; plain "
+             f"{t['plain_ms'] * 1e3:.1f} us; SDPA yardstick "
+             f"{t['library_ms'] * 1e3:.2f} us device per call")
+    if "library_warm_ms" in t:
+        line += f" cold, {t['library_warm_ms'] * 1e3:.2f} warm"
+    line += f", {t['library_wall_ms'] * 1e3:.2f} per call in events"
+    print(line)
 
 
 # ---------------------------------------------------------------------------
@@ -1102,14 +1231,12 @@ def check_attention_hd256(torch):
 
 
 def time_recurrent(torch):
-    """Phase 12: rglru_scan, mlstm_cell and the head-dim 256 attention at
-    the serving shapes (CUDA events), beside their plain versions and
-    bounds; no single PyTorch call computes either recurrent function
-    (library_ms null), SDPA is the attention's yardstick."""
-    import torch.nn.functional as F
+    """Phase 12: rglru_scan and mlstm_cell at the serving shapes (CUDA
+    events), and the head-dim 256 attention (``time_prefill``,
+    ``time_decode``), beside their plain versions and bounds; no single
+    PyTorch call computes either recurrent function (library_ms null),
+    SDPA is the attention's yardstick."""
     from repro_torch.kernels import mlstm_cell as mc
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import prefill_attention as fp
     from repro_torch.kernels import rglru_scan as rs
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -1157,64 +1284,14 @@ def time_recurrent(torch):
                              ms=ms, plain_ms=plain, library_ms=None,
                              bound_ms=bound, bound_by=by, bytes=nbytes,
                              ops=f"{ops_bf16} bf16 + {ops_f32} f32")
-    # prefill attention at hd 256: a 512-token chunk after a 1024-token hit
-    Sq, kept = CHUNK, SYS_PREFIX
-    Sk = kept + Sq
-    q = rand(1, Sq, RG_H, RG_HD, dtype=bf, scale=0.5)
-    k = rand(1, Sk, RG_KV, RG_HD, dtype=bf, scale=0.5)
-    v = rand(1, Sk, RG_KV, RG_HD, dtype=bf, scale=0.5)
-    offs = torch.full((1,), kept, dtype=torch.int32, device=dev)
-    ms = _events_ms(torch, lambda: fp.flash_prefill(q, k, v, offs, RG_W), 50)
-    plain = _events_ms(torch, lambda: fp.flash_prefill_plain(
-        q, k, v, offs, RG_W), 5)
-    qt = q.transpose(1, 2)
-    kt = k.transpose(1, 2).expand(1, RG_H, Sk, RG_HD)
-    vt = v.transpose(1, 2).expand(1, RG_H, Sk, RG_HD)
-    qpos = kept + torch.arange(Sq, device=dev)[:, None]
-    kpos = torch.arange(Sk, device=dev)[None]
-    mask = (kpos <= qpos) & (qpos - kpos < RG_W)
-    lib = _events_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), 20)
-    seen = sum(min(kept + i + 1, RG_W) for i in range(Sq))
-    nbytes = 2 * (2 * Sq * RG_H * RG_HD + 2 * Sk * RG_KV * RG_HD) + 4
-    ops = 4 * RG_HD * RG_H * seen
-    bound, by = _bound(nbytes, ops)
-    out["prefill_attention hd 256"] = dict(
-        shape=f"Sq={Sq} over {kept} kept ring rows, H={RG_H} KV={RG_KV}",
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-        bytes=nbytes, ops=ops)
-    # paged attention at hd 256: 8 rings of 2048, contexts up to W
-    B = MAX_BATCH
-    ring_k = rand(B, RG_W, RG_KV, RG_HD, dtype=bf, scale=0.5)
-    ring_v = rand(B, RG_W, RG_KV, RG_HD, dtype=bf, scale=0.5)
-    pages = (B * RG_W // KV_BLOCK, KV_BLOCK, RG_KV, RG_HD)
-    bt = torch.arange(B * RG_W // KV_BLOCK, dtype=torch.int32,
-                      device=dev).reshape(B, -1)
+    # the attention kernels at hd 256: a 512-token chunk after a 1024-token
+    # hit, and a decode step over 8 rings of 2048 with contexts up to W
+    out["prefill_attention hd 256"] = time_prefill(
+        torch, rng, CHUNK, SYS_PREFIX, RG_H, RG_KV, RG_HD, RG_W)
     ctx_np = np.minimum(rng.randint(SYS_PREFIX + 256, SYS_PREFIX + 1536 + 32,
-                                    B), RG_W).astype(np.int32)
-    ctx = torch.from_numpy(ctx_np).to(dev)
-    q = rand(B, RG_H, RG_HD, dtype=bf, scale=0.5)
-    kp, vp = ring_k.view(pages), ring_v.view(pages)
-    ms = _events_ms(torch, lambda: pa.paged_attention(q, kp, vp, bt, ctx),
-                    200)
-    plain = _events_ms(torch, lambda: pa.paged_attention_plain(
-        q, kp, vp, bt, ctx), 5)
-    kt = ring_k.transpose(1, 2).expand(B, RG_H, RG_W, RG_HD)
-    vt = ring_v.transpose(1, 2).expand(B, RG_H, RG_W, RG_HD)
-    mask = (torch.arange(RG_W, device=dev)[None]
-            < ctx[:, None])[:, None, None]
-    lib = _events_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kt, vt, attn_mask=mask), 50)
-    total = int(ctx_np.sum())
-    pages_read = int(sum(-(-int(c) // KV_BLOCK) for c in ctx_np))
-    nbytes = (2 * 2 * total * RG_KV * RG_HD + 2 * 2 * B * RG_H * RG_HD
-              + 4 * pages_read + 4 * B)
-    ops = 4 * RG_HD * RG_H * total
-    bound, by = _bound(nbytes, ops)
-    out["paged_attention hd 256"] = dict(
-        shape=f"B={B} rings of {RG_W}, contexts {ctx_np.tolist()}", ms=ms,
-        plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-        bytes=nbytes, ops=ops)
+                                    MAX_BATCH), RG_W)
+    out["paged_attention hd 256"] = time_decode(
+        torch, rng, MAX_BATCH, RG_W, RG_H, RG_KV, RG_HD, ctx_np)
     return out
 
 
@@ -1360,8 +1437,10 @@ def profile_steps(torch, gpu, arch):
 
 
 def ptxas_summary(reports):
-    """One line per kernel of ptxas's ``-v`` reports: registers, stack
-    and spills (names demangled by ``c++filt`` where it exists)."""
+    """One line per kernel of ptxas's ``-v`` reports: registers, static
+    shared memory (the attention kernels' tiles are dynamic shared memory,
+    sized at launch), stack and spills (names demangled by ``c++filt``
+    where it exists)."""
     import re
     out = []
     for src, text in sorted(reports.items()):
@@ -1385,10 +1464,45 @@ def ptxas_summary(reports):
                 stack, st, ld = regs or ("?", "?", "?")
                 name = name.replace("(anonymous namespace)::", "")
                 name = name.replace("void ", "").split("(")[0]
+                smem = re.search(r"(\d+) bytes smem", line)
                 out.append(f"{src}.cu {name}: {m.group(1)} "
-                           f"registers, {stack} B stack, {st} B spill "
+                           f"registers, {smem.group(1) if smem else 0} B "
+                           f"static smem, {stack} B stack, {st} B spill "
                            f"stores, {ld} B spill loads")
                 name, regs = None, None
+    return out
+
+
+def sass_summary(names):
+    """One line per kernel of the built libraries ``names``: how many
+    tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) and TMA loads
+    (UTMALDG) its machine code holds, from ``cuobjdump -sass``."""
+    import re
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = []
+    for name in names:
+        try:
+            text = subprocess.run(
+                [tool, "-sass", str(_build.library_path(name))],
+                capture_output=True, text=True, timeout=120).stdout
+        except OSError as e:
+            out.append(f"{name}: cuobjdump not run ({e})")
+            continue
+        for fn in re.split(r"\n\s*Function : ", text)[1:]:
+            head, body = fn.split("\n", 1)
+            counts = {op: len(re.findall(rf"\b{op}\b", body))
+                      for op in ("HGMMA", "HMMA", "UTMALDG")}
+            try:
+                head = subprocess.run(
+                    ["c++filt", head.strip()], capture_output=True,
+                    text=True, timeout=10).stdout.strip() or head
+            except OSError:
+                pass
+            head = head.replace("(anonymous namespace)::", "")
+            head = head.replace("void ", "").split("(")[0]
+            out.append(f"{name}.so {head}: " + ", ".join(
+                f"{n} {op}" for op, n in counts.items()))
     return out
 
 
@@ -1412,6 +1526,8 @@ def main() -> int:
           f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
     for line in ptxas_summary(_build.PTXAS):
         print(f"ptxas: {line}")
+    for line in sass_summary(("prefill_attention", "paged_attention")):
+        print(f"sass: {line}")
     if "--profile" in sys.argv[1:]:
         for arch in ("qwen2_7b", "recurrentgemma_9b", "xlstm_350m"):
             profile_steps(torch, gpu, arch)
@@ -1515,24 +1631,21 @@ def main() -> int:
 
     # ---- phases 7 and 12: kernel timings at the serving shapes -------
     ta = time_attention(torch)
-    for shape, t in ta.items():
-        print(f"[{gpu}] {shape}: kernel {t['ms'] * 1e3:.1f} us, plain "
-              f"{t['plain_ms'] * 1e3:.1f} us, library (SDPA yardstick) "
-              f"{t['library_ms'] * 1e3:.1f} us; bound {t['bound_ms'] * 1e3:.2f}"
-              f" us ({t['bound_by']}: {t['bytes']} B, {t['ops']} ops)")
+    for name, t in ta.items():
+        report_attention_timing(gpu, name, t)
     tr = time_recurrent(torch)
     for name, t in tr.items():
-        lib = ("no single PyTorch call computes this function"
-               if t["library_ms"] is None else
-               f"library (SDPA yardstick) {t['library_ms'] * 1e3:.1f} us")
+        if name.endswith("hd 256"):
+            report_attention_timing(gpu, name, t)
+            continue
         print(f"[{gpu}] {name} {t['shape']}: kernel {t['ms'] * 1e3:.1f} us, "
-              f"plain {t['plain_ms'] * 1e3:.1f} us, {lib}; bound "
-              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {t['bytes']} "
-              f"B, {t['ops']} ops)")
+              f"plain {t['plain_ms'] * 1e3:.1f} us, no single PyTorch call "
+              f"computes this function; bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
-    dec_t = next(v for k, v in ta.items() if k.startswith("decode"))
+    dec_t = ta["decode"]
     record = {"kernels": [{
         "name": "route_score", "route": "cuda",
         "source": "src/repro_torch/csrc/route_score.cu",
@@ -1543,7 +1656,9 @@ def main() -> int:
         "bound_ms": tw["bound_ms"], "bound_by": tw["bound_by"],
         "library_ms": None}]}
     # the attention kernels' launches are those of every serving path
-    # that runs them; their times are at Qwen2-7B's shapes (hd 256 above)
+    # that runs them; their times are device times per launch at
+    # Qwen2-7B's shapes (decode with cold K/V; hd 256 above), their SDPA
+    # times measured the same way
     for name, t, line in (("prefill_attention", pre_t, 28),
                           ("paged_attention", dec_t, 29),
                           ("rglru_scan", tr["rglru_scan"], 25),

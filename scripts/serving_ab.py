@@ -25,7 +25,8 @@ Run on a machine with a CUDA card, from the repo root:
 
     python3 scripts/serving_ab.py build/ab/parent . . build/ab/parent
 
-With no checkout given, only the slot copies are timed.
+With no checkout given, only the slot copies are timed; ``--no-copies``
+skips them.
 """
 import argparse
 import json
@@ -148,6 +149,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", help="checkout roots, in run order")
     ap.add_argument("--arch", default="qwen2_7b")
+    ap.add_argument("--no-copies", action="store_true",
+                    help="do not time the slot copies")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -155,6 +158,8 @@ def main():
     print(f"card: {card}")
     for root in args.trees:
         print(json.dumps(run_tree(root, args.arch)), flush=True)
+    if args.no_copies:
+        return
     nbytes, copies = time_slot_copies()
     for name, ms in copies.items():
         print(f"[{card}] slot of {nbytes} bytes, {name}: {ms:.2f} ms "

@@ -9,9 +9,10 @@ a window, ``kv_offset[b] + i - j < window``); a cached prefix removes
 query rows, not just masks them.
 
 For tensors on a CUDA device :func:`flash_prefill` launches the
-hand-written kernel ``csrc/prefill_attention.cu`` (mma.sync bf16 tensor
-cores, f32 accumulation; an f32 input is split into two bf16 halves);
-for CPU tensors it runs :func:`flash_prefill_plain`, the same function as
+hand-written kernel ``csrc/prefill_attention.cu``: for bf16 a
+warp-specialised wgmma kernel fed by TMA (f32 accumulation), for f32 the
+first mma.sync kernel with each input split into two bf16 halves; for
+CPU tensors it runs :func:`flash_prefill_plain`, the same function as
 plain PyTorch ops — the kernel's yardstick on the card and the CPU
 tests' subject.
 """
@@ -93,6 +94,9 @@ def _fn():
 
 def _launch(q, k, v, kv_offset, window):
     global LAUNCHES
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return _launch(q, k, v, kv_offset, window)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if hd not in _KERNEL_HEAD_DIMS:
@@ -103,22 +107,24 @@ def _launch(q, k, v, kv_offset, window):
                          "contiguous")
     inner = (KV * hd, hd, 1)
     if (k.stride()[1:] != inner or v.stride() != k.stride()
-            or k.data_ptr() % 16 or v.data_ptr() % 16):
+            or k.data_ptr() % 16 or v.data_ptr() % 16
+            or k.stride(0) * k.element_size() % 16):
         raise ValueError("flash_prefill kernel: k and v need contiguous "
                          "(Sk, KV, hd) rows, one stride and 16-byte "
-                         "aligned starts")
+                         "aligned starts and batch strides")
     if max(B * Sq * H, B * Sk * KV) * hd >= 2 ** 31:
         raise ValueError("flash_prefill kernel: tensors too large")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = _fn()(_DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), kv_offset.data_ptr(), out.data_ptr(), B,
-                   Sq, Sk, H, KV, k.stride(0), window or 0,
-                   1.0 / math.sqrt(hd),
-                   torch.cuda.current_stream(q.device).cuda_stream)
+    # the current stream's raw handle, without building a Stream object
+    rc = _fn()(_DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), kv_offset.data_ptr(), out.data_ptr(), B, Sq, Sk,
+               H, KV, k.stride(0), window or 0, 1.0 / math.sqrt(hd),
+               torch._C._cuda_getCurrentRawStream(q.device.index))
     if rc != 0:
-        raise RuntimeError(f"prefill_attention kernel launch failed: "
-                           f"cudaError {rc}")
+        why = {-2: "libcuda's cuTensorMapEncodeTiled was not found",
+               -3: "libcuda refused the K/V tensor maps"}.get(
+                   rc, f"cudaError {rc}")
+        raise RuntimeError(f"prefill_attention kernel launch failed: {why}")
     LAUNCHES += 1
     return out
 

@@ -195,6 +195,16 @@ def test_chip_smoke_attention_bounds_count_the_work_needed():
     assert ops == 4 * hd * H * 33
     bound, by = smoke._bound(*smoke.prefill_bound(Sq, off))
     assert by == "operations" and abs(bound - 9.3989e9 / 989e12 * 1e3) < 1e-6
+    # RecurrentGemma-9B's widths (16 q heads over 1 KV head, hd 256, window
+    # 2048): row i sees min(off + i + 1, 2048) keys
+    nbytes, ops = smoke.prefill_bound(Sq, off, 2048, H=16, KV=1, hd=256)
+    assert nbytes == 2 * (2 * Sq * 16 * 256 + 2 * (off + Sq) * 256) + 4
+    assert ops == 4 * 256 * 16 * sum(min(off + i + 1, 2048)
+                                     for i in range(Sq))
+    nbytes, ops = smoke.paged_bound([2048, 1], 16, H=16, KV=1, hd=256)
+    assert nbytes == 2 * 2 * 2049 * 256 + 2 * 2 * 2 * 16 * 256 + 4 * 129 + 8
+    assert ops == 4 * 256 * 16 * 2049
+    assert smoke._bound(nbytes, ops)[1] == "bytes"
 
 
 # ---------------------------------------------------------------------------

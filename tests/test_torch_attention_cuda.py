@@ -65,7 +65,13 @@ def _assert_close(got, want, dtype):
      (1, 512, 0, 28, 4, 128, None),       # Qwen2-7B widths
      (1, 512, 3072, 28, 4, 128, None),
      (1, 300, 1000, 28, 4, 128, None),
-     (1, 512, 1024, 28, 4, 128, 256)])
+     (1, 512, 1024, 28, 4, 128, 256),
+     (2, 40, 0, 28, 4, 128, None),        # kv_offset 0, 280 rows: ragged
+     (1, 100, 0, 16, 1, 256, None),       # hd 256, 1600 rows: whole tiles
+     (1, 77, 30, 16, 1, 256, 64),         # hd 256, window culls key tiles
+     (1, 300, 1800, 16, 1, 256, 2048),    # RecurrentGemma-9B's ring
+     (2, 50, 200, 14, 2, 64, 32),         # G = 7, window culls, ragged
+     (1, 130, 0, 8, 1, 128, 16)])         # window 16 < one key tile
 def test_prefill_kernel_matches_plain(card, B, Sq, off, H, KV, hd, window,
                                       dtype):
     rng = np.random.RandomState(B * 1000 + Sq + off)
@@ -84,19 +90,26 @@ def test_prefill_kernel_matches_plain(card, B, Sq, off, H, KV, hd, window,
 
 
 @pytest.mark.cuda
-def test_prefill_kernel_on_a_cache_slice(card):
+@pytest.mark.parametrize("H,KV,hd,window", [(28, 4, 128, None),
+                                            (16, 1, 256, 64),
+                                            (8, 2, 64, None)])
+def test_prefill_kernel_on_a_cache_slice(card, H, KV, hd, window):
     """k/v as the engine passes them: the first Sk rows of a longer slot
-    cache, with per-row offsets that differ."""
+    cache (a batch stride that is not Sk rows: the TMA tensor map's own
+    stride, and rows past Sk never read), with per-row offsets that
+    differ."""
     rng = np.random.RandomState(7)
-    B, S, H, KV, hd, Sq = 3, 256, 28, 4, 128, 40
+    B, S, Sq = 3, 256, 40
     cache_k = _randn(rng, (B, S, KV, hd), torch.bfloat16, card)
     cache_v = _randn(rng, (B, S, KV, hd), torch.bfloat16, card)
     offs = torch.tensor([0, 60, 131], dtype=torch.int32, device=card)
     Sk = 131 + Sq
     q = _randn(rng, (B, Sq, H, hd), torch.bfloat16, card,
                Q_SCALE[torch.bfloat16])
-    got = fp.flash_prefill(q, cache_k[:, :Sk], cache_v[:, :Sk], offs)
-    want = fp.flash_prefill_plain(q, cache_k[:, :Sk], cache_v[:, :Sk], offs)
+    got = fp.flash_prefill(q, cache_k[:, :Sk], cache_v[:, :Sk], offs,
+                           window)
+    want = fp.flash_prefill_plain(q, cache_k[:, :Sk], cache_v[:, :Sk], offs,
+                                  window)
     torch.cuda.synchronize()
     _assert_close(got, want, torch.bfloat16)
 
@@ -110,7 +123,9 @@ def test_prefill_kernel_on_a_cache_slice(card):
      (1, 8, 1, 128, 8, 5),
      (2, 4, 2, 128, 32, 2),
      (3, 28, 4, 64, 16, 9),                # G = 7
-     (8, 28, 4, 128, 16, 256)])            # Qwen2-7B widths, 4096 keys
+     (8, 28, 4, 128, 16, 256),             # Qwen2-7B widths, 4096 keys
+     (8, 16, 1, 256, 16, 128),             # RecurrentGemma-9B's rings
+     (4, 32, 2, 64, 16, 40)])              # G = 16, two kv heads
 def test_paged_kernel_matches_plain(card, B, H, KV, hd, page, npages, dtype):
     rng = np.random.RandomState(B * 100 + npages)
     ntotal = npages * B + 2
@@ -128,6 +143,58 @@ def test_paged_kernel_matches_plain(card, B, H, KV, hd, page, npages, dtype):
     assert pa.LAUNCHES == before + 1
     want = pa.paged_attention_plain(q, kp, vp, bt, ctx)
     _assert_close(got, want, dtype)
+
+
+#: contexts of the split tests: empty, a single key, the edges of one
+#: 16-key tile and of a page, and a full table (a ring that is exactly full)
+SPLIT_CTX = [0, 1, 15, 16, 17, 700, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("splits", [1, 2, 7, 64])
+@pytest.mark.parametrize("H,KV,hd", [(28, 4, 128), (16, 1, 256),
+                                     (14, 2, 64)])
+def test_paged_kernel_forced_splits(card, H, KV, hd, splits, dtype):
+    """Split counts forced from 1 to 64 (the last ones hold no key at short
+    contexts): the same result as the plain version, and no NaN."""
+    rng = np.random.RandomState(splits * 7 + hd)
+    B, page, npages = len(SPLIT_CTX), 16, 2048 // 16
+    q = _randn(rng, (B, H, hd), dtype, card, Q_SCALE[dtype])
+    kp = _randn(rng, (B * npages, page, KV, hd), dtype, card)
+    vp = _randn(rng, (B * npages, page, KV, hd), dtype, card)
+    bt = torch.from_numpy(rng.permutation(B * npages).astype(np.int32)
+                          .reshape(B, npages)).to(card)
+    ctx = torch.tensor(SPLIT_CTX, dtype=torch.int32, device=card)
+    pa._check(q, kp, vp, bt, ctx)
+    got = pa._launch(q, kp, vp, bt, ctx, splits)
+    want = pa.paged_attention_plain(q, kp, vp, bt, ctx)
+    torch.cuda.synchronize()
+    assert not got.isnan().any()
+    assert got[0].abs().max().item() == 0.0
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,hd", [(28, 4, 128), (16, 1, 256)])
+def test_paged_kernel_is_deterministic(card, H, KV, hd):
+    """The partials are merged in split order without float atomics, so two
+    launches on the same inputs give the same bits."""
+    rng = np.random.RandomState(5)
+    B, page, npages = 8, 16, 128
+    q = _randn(rng, (B, H, hd), torch.bfloat16, card, 2.0)
+    kp = _randn(rng, (B * npages, page, KV, hd), torch.bfloat16, card)
+    vp = _randn(rng, (B * npages, page, KV, hd), torch.bfloat16, card)
+    bt = torch.arange(B * npages, dtype=torch.int32,
+                      device=card).reshape(B, npages)
+    ctx = torch.from_numpy(rng.randint(1, npages * page + 1, B)
+                           .astype(np.int32)).to(card)
+    splits, grid = pa.launch_config(q, kp, bt)
+    assert splits > 1 and grid == (splits, -(-(H // KV) // 16) * KV, B)
+    first = pa.paged_attention(q, kp, vp, bt, ctx)
+    second = pa.paged_attention(q, kp, vp, bt, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
