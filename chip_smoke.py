@@ -12,9 +12,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``paged_attention.cu``, ``rglru_scan.cu``, ``mlstm_cell.cu``) with
    nvcc for sm_90a (one nvcc each, all at once), print the build time
    and ptxas's registers, static shared memory and spills of every
-   kernel instantiation, and the attention kernels' counts of wgmma
-   (HGMMA), mma.sync (HMMA) and TMA load (UTMALDG) instructions from
-   ``cuobjdump -sass``;
+   kernel instantiation, and the attention and mLSTM kernels' counts of
+   wgmma (HGMMA), mma.sync (HMMA) and TMA load (UTMALDG) instructions
+   from ``cuobjdump -sass``;
 2. kernel vs plain — the CUDA ``route_score`` kernel against its plain
    PyTorch version on the card, for every kind and ablation, on seeded
    random and forced-tie states at (k, n) in {(24, 32), (64, 1024),
@@ -25,9 +25,12 @@ Phases (each raises on failure, so any failure exits nonzero):
    a second router from the same state routes with sequential
    ``route()``; decisions and hit tokens must be identical, and the
    kernel's launch count, zeroed just before, must have risen;
-4. timings — kernel time per wave (CUDA events), the plain version's
-   time on the same wave, the pipeline's stage times and µs per decision
-   of both routers, each beside the card's name and power limit;
+4. timings — the kernel's device time per wave (``torch.profiler``) with
+   cold inputs (rotating over copies of the depth matrix that hold
+   ``COLD_BYTES``) and warm, beside its CUDA-event time per wave; the
+   plain version's time on the same wave, the pipeline's stage times and
+   µs per decision of both routers, each beside the card's name and power
+   limit;
 5. attention kernels vs plain — ``prefill_attention`` (512-token chunks
    at offsets 0 and 3072, a ragged 300-token chunk, a windowed chunk) and
    ``paged_attention`` (8 sequences, page 16, contexts up to 4096, block
@@ -51,10 +54,12 @@ Phases (each raises on failure, so any failure exits nonzero):
    and share of it, and one PyTorch library call as a yardstick
    (``scaled_dot_product_attention``, never used by the port), timed the
    same ways;
-8. recurrent kernels vs plain — ``rglru_scan`` at (1, 512, 4096) and
-   ragged S and D with a non-zero h0; ``mlstm_cell`` at (1, 256, 4, 512),
-   at L = 37 from m0 = -1e30 and m0 = 0, and a chain of 4 chunks against
-   the plain chain, with f32 and the model's bf16 q/k/v (``REC_TOL``);
+8. recurrent kernels vs plain — ``rglru_scan`` at (1, 512, 4096), ragged
+   S and D, B = 2 and the edges of its segments and windows (S = 1,
+   P +- 1, P x SEGMAX +- 1) with a non-zero h0; ``mlstm_cell`` at (1,
+   256, 4, 512), at L = 37 from m0 = -1e30 and m0 = 0, at the engines'
+   warm-up L = 8 (B = 1 and 2), and a chain of 4 chunks against the
+   plain chain, with f32 and the model's bf16 q/k/v (``REC_TOL``);
 9. attention at head dim 256 vs plain — both kernels at RecurrentGemma's
    widths (16 query heads over 1 KV head, window 2048): prefill with
    kept ring rows below, at and above W, decode over 8 rings with
@@ -71,8 +76,12 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``exact_only`` router, ``mlstm_cell`` launches (21 x ceil(n/256) per
    chunk of n tokens) as expected, logits held to the plain forward;
 12. recurrent timings — ``rglru_scan`` and ``mlstm_cell`` at the serving
-   shapes beside their plain versions and bounds, and the head-dim 256
-   attention timed as in phase 7.
+   shapes as in phase 7: device time per launch with cold inputs
+   (rotating over copies that hold ``COLD_BYTES``) and warm, the
+   wrapper's time per call in CUDA events, beside their plain versions
+   and bounds (``mlstm_bound``: the tensor-core work, beside the first
+   version's CUDA-core count); and the head-dim 256 attention timed as in
+   phase 7.
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed);
@@ -80,7 +89,8 @@ the recurrent paths keep their width and depth.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and, instead of
 the phases, traces decode steps and prefill chunks of each served model
-with ``torch.profiler`` (device busy share, top kernels).
+with ``torch.profiler`` (device busy share, top kernels, and each port
+kernel's device time per step however small).
 
 Without a CUDA device it exits with 2 and prints no result.  The three
 last lines of standard output are the JSON kernel record, the card's
@@ -308,7 +318,8 @@ def wave_bound(kind, params, k, n):
 
 def time_wave(torch, rs, router, wave_reqs, reps=20):
     """Phase 4: the kernel and its plain version on one real wave of the
-    main path (k=64 over the router's n instances)."""
+    main path (k=64 over the router's n instances): the kernel's device
+    time per launch, cold and warm, and its CUDA-event time per launch."""
     policy, f = router.policy, router.factory
     depth, lcp, plen = policy.wave_inputs(wave_reqs, f)
     cols = f.device_view()
@@ -329,6 +340,16 @@ def time_wave(torch, rs, router, wave_reqs, reps=20):
     stop.record()
     torch.cuda.synchronize()
     kernel_ms = start.elapsed_time(stop) / reps
+    # device time per launch (profiler), cold: rotating over copies of the
+    # depth matrix and the packed lcp/plen/tie buffer that hold COLD_BYTES
+    # (the four mirror columns, 0.5 MB, stay shared); and warm
+    sets = [(depth_d.clone(), aux_d.clone()) for _ in range(_copies(
+        8 * (depth_d.numel() + aux_d.numel())))]
+    runs = [(lambda d=d, x=x: rs.route_wave_device(kind, params, BLOCK, cols,
+                                                   d, x)) for d, x in sets]
+    device_ms = _device_ms(torch, runs, 5)
+    device_warm_ms = _device_ms(torch, runs[:1], 10)
+    del sets, runs
     want = rs.route_wave_ref(kind, params, BLOCK, *cols, depth_d, lcp,
                              plen, tie0)
     plain_s = []
@@ -362,7 +383,8 @@ def time_wave(torch, rs, router, wave_reqs, reps=20):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP64_OPS_PER_S * 1e3
     return {"k": k, "n": n, "kind": kind, "params": params,
-            "kernel_ms": kernel_ms,
+            "kernel_ms": kernel_ms, "device_ms": device_ms,
+            "device_warm_ms": device_warm_ms,
             "plain_ms": sum(plain_s) / len(plain_s) * 1e3,
             "stage_ms": float(np.median(stage_s)) * 1e3,
             "pin_ms": float(np.median(pin_s)) * 1e3,
@@ -871,6 +893,20 @@ def _events_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def _device_events(prof):
+    """(name, us) of every device activity in a trace: from the raw Kineto
+    events, which keep activities the profiler could not tie to a
+    CPU-side call, else from the profiler's event list."""
+    from torch.autograd import DeviceType
+    try:
+        return [(e.name(), e.duration_ns() / 1e3)
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA]
+    except AttributeError:
+        return [(e.name, e.device_time_total) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+
 def _device_ms(torch, fns, rounds, tries=3):
     """Device time per call: ``rounds`` rounds over ``fns`` (one call each)
     under ``torch.profiler`` after one warm-up round; the time of every
@@ -878,9 +914,11 @@ def _device_ms(torch, fns, rounds, tries=3):
     Rotating over ``fns`` that read distinct copies of their inputs keeps
     those inputs out of the L2 cache.  Every call runs the same kernels,
     so a trace in which some kernel's count is not a multiple of the
-    calls has lost events (seen once, for SDPA): it is taken again, up to
-    ``tries`` times."""
-    from torch.autograd import DeviceType
+    calls has lost events (seen for SDPA and, after the serving phases,
+    for the prefill kernel): it is taken again, up to ``tries`` times;
+    then each kernel's mean time per event is taken once per call, or as
+    many times as its events per call round to, and the loss is
+    printed."""
     from torch.profiler import ProfilerActivity, profile
     calls = rounds * len(fns)
     for _ in range(tries):
@@ -894,14 +932,19 @@ def _device_ms(torch, fns, rounds, tries=3):
                     fn()
             torch.cuda.synchronize()
         us, count = collections.Counter(), collections.Counter()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                us[e.name] += e.device_time_total
-                count[e.name] += 1
+        for name, t in _device_events(prof):
+            us[name] += t
+            count[name] += 1
         if count and all(n % calls == 0 for n in count.values()):
             return sum(us.values()) / 1e3 / calls
-    raise AssertionError(f"torch.profiler lost device events {tries} times "
-                         f"({dict(count)} over {calls} calls)")
+    if not count:
+        raise AssertionError(f"torch.profiler saw no device event in "
+                             f"{tries} traces of {calls} calls")
+    print(f"torch.profiler lost device events {tries} times ({dict(count)} "
+          f"over {calls} calls): each kernel's mean per event taken "
+          f"instead", file=sys.stderr)
+    return sum(us[k] / count[k] * max(1, round(count[k] / calls))
+               for k in us) / 1e3
 
 
 #: decode timings rotate over copies of the cache that together hold at
@@ -909,6 +952,11 @@ def _device_ms(torch, fns, rounds, tries=3):
 #: each launch finds its K/V cold, as a decode step does after 28-38
 #: layers of weights have passed through L2
 COLD_BYTES = 100e6
+
+
+def _copies(nbytes):
+    """How many copies of inputs of ``nbytes`` hold ``COLD_BYTES``."""
+    return max(2, int(-(-COLD_BYTES // nbytes)))
 
 
 def _over_group(x, H):
@@ -975,7 +1023,7 @@ def time_decode(torch, rng, B, S, H, KV, hd, ctx_np):
                                 * 0.5).to(dev, torch.bfloat16)
 
     nbytes, ops = paged_bound(ctx_np, KV_BLOCK, H, KV, hd)
-    copies = max(2, int(-(-COLD_BYTES // nbytes)))
+    copies = _copies(nbytes)
     pages = (B * S // KV_BLOCK, KV_BLOCK, KV, hd)
     caches = [(rand(B, S, KV, hd).view(pages), rand(B, S, KV, hd).view(pages))
               for _ in range(copies)]
@@ -1089,7 +1137,14 @@ def check_recurrent(torch):
 
     worst = {"rglru_scan": 0.0, "mlstm_cell": 0.0}
     report = []
-    for B, S, D in ((1, CHUNK, RG_DR), (1, 333, 4000), (2, 17, 31)):
+    # the serving shape, ragged S and D, B = 2, and the segment edges of
+    # the serving width's plan: one position, P segments +- 1 position,
+    # one window (P x SEGMAX positions) +- 1
+    P = rs.launch_plan(torch.empty((1, CHUNK, RG_DR), device=dev))["P"]
+    shapes = [(1, CHUNK, RG_DR), (1, 333, 4000), (2, 17, 31)] + [
+        (1, S, RG_DR) for S in (1, P - 1, P + 1, P * rs.SEGMAX - 1,
+                                P * rs.SEGMAX + 1)]
+    for B, S, D in shapes:
         a = torch.from_numpy((rng.rand(B, S, D) * 0.95).astype(
             np.float32)).to(dev)
         x, h0 = rand((B, S, D)), rand((B, D))
@@ -1099,21 +1154,21 @@ def check_recurrent(torch):
         err = max((h - hp).abs().max().item(), (hl - hlp).abs().max().item())
         report.append(f"rglru_scan (B, S, D) = {(B, S, D)}, h0 != 0: "
                       f"{err:.3g}")
-        if not err <= REC_TOL["rglru_scan"]:
+        if not (err <= REC_TOL["rglru_scan"] and torch.equal(hl, h[:, -1])):
             raise AssertionError(f"rglru_scan != plain: {report[-1]}")
         worst["rglru_scan"] = max(worst["rglru_scan"], err)
 
-    def cell_inputs(L, m0, dtype):
-        q, k, v = (rand((1, L, XL_H, XL_HD), 0.3, dtype) for _ in range(3))
-        il, fl = rand((1, L, XL_H), 0.5), -rand((1, L, XL_H), 0.3).abs()
-        C0 = rand((1, XL_H, XL_HD, XL_HD), 0.1)
-        n0 = rand((1, XL_H, XL_HD), 0.1).abs()
+    def cell_inputs(L, m0, dtype, B=1):
+        q, k, v = (rand((B, L, XL_H, XL_HD), 0.3, dtype) for _ in range(3))
+        il, fl = rand((B, L, XL_H), 0.5), -rand((B, L, XL_H), 0.3).abs()
+        C0 = rand((B, XL_H, XL_HD, XL_HD), 0.1)
+        n0 = rand((B, XL_H, XL_HD), 0.1).abs()
         if m0 is None:
-            return q, k, v, il, fl, C0, n0, rand((1, XL_H), 0.1)
+            return q, k, v, il, fl, C0, n0, rand((B, XL_H), 0.1)
         if m0 < -1e29:                               # a fresh state
             C0.zero_()
             n0.zero_()
-        return q, k, v, il, fl, C0, n0, torch.full((1, XL_H), m0,
+        return q, k, v, il, fl, C0, n0, torch.full((B, XL_H), m0,
                                                     device=dev)
 
     def compare(got, want, dtype, what):
@@ -1131,12 +1186,15 @@ def check_recurrent(torch):
         worst["mlstm_cell"] = max(worst["mlstm_cell"], err_h, err_st)
 
     for dtype in (torch.float32, torch.bfloat16):
-        for L, m0 in ((XL_L, None), (37, -1e30), (37, 0.0)):
-            inputs = cell_inputs(L, m0, dtype)
+        # the serving chunk, a ragged one from both starting stabilisers,
+        # the engines' warm-up chunk of 8, and B = 2
+        for L, m0, B in ((XL_L, None, 1), (37, -1e30, 1), (37, 0.0, 1),
+                         (8, 0.0, 1), (8, -1e30, 2)):
+            inputs = cell_inputs(L, m0, dtype, B)
             got = mc.mlstm_chunk(*inputs)
             want = mc.mlstm_chunk_plain(*inputs)
             torch.cuda.synchronize()
-            compare(got, want, dtype, f"(1, {L}, {XL_H}, {XL_HD}) m0={m0}")
+            compare(got, want, dtype, f"({B}, {L}, {XL_H}, {XL_HD}) m0={m0}")
         q, k, v, il, fl, *_ = cell_inputs(4 * XL_L, 0.0, dtype)
         st = stp = (torch.zeros((1, XL_H, XL_HD, XL_HD), device=dev),
                     torch.zeros((1, XL_H, XL_HD), device=dev),
@@ -1230,16 +1288,40 @@ def check_attention_hd256(torch):
     return worst, report
 
 
-def time_recurrent(torch):
-    """Phase 12: rglru_scan and mlstm_cell at the serving shapes (CUDA
-    events), and the head-dim 256 attention (``time_prefill``,
-    ``time_decode``), beside their plain versions and bounds; no single
-    PyTorch call computes either recurrent function (library_ms null),
-    SDPA is the attention's yardstick."""
+def mlstm_bound(L, H, hd):
+    """Least (bytes, operations) of one bf16 ``mlstm_cell`` call, and the
+    CUDA-core count the first version was held to.
+
+    Bytes: q, k, v read and h written in bf16, C, n, m read and written
+    and the two gates read in f32.  Operations, on the tensor cores: q k^T
+    over the causal half of the (L, L) square (S is 0 above the diagonal)
+    has bf16 operands and takes one pass; S v (causal half), q C0 and
+    (k w_src)^T v (the whole state) have an f32 operand, split into bf16
+    hi + lo, and take two passes.  The old count took q k^T at the bf16
+    rate and the other three once each at the f32 CUDA-core rate."""
+    pairs = L * (L + 1) // 2
+    nbytes = (2 * 4 * L * H * hd + 4 * 2 * (H * hd * hd + H * hd + H)
+              + 4 * 2 * L * H)
+    ops = H * (2 * pairs * hd + 2 * (2 * pairs * hd + 2 * 2 * L * hd * hd))
+    old_f32 = H * (2 * pairs * hd + 2 * 2 * L * hd * hd)
+    old_ms = max(nbytes / HBM_BYTES_PER_S,
+                 H * 2 * pairs * hd / BF16_OPS_PER_S
+                 + old_f32 / FP32_OPS_PER_S) * 1e3
+    return nbytes, ops, old_ms
+
+
+def time_recurrent_kernels(torch):
+    """``rglru_scan`` and ``mlstm_cell`` at the serving shapes: device time
+    per launch (``torch.profiler``) with cold inputs, rotating over copies
+    that hold ``COLD_BYTES``, and warm (one copy); the wrapper's wall per
+    call (CUDA events around back-to-back calls); the plain version; the
+    bound.  No single PyTorch call computes either function (library_ms
+    null).  Only the public wrappers are called, so ``scripts/
+    serving_ab.py --kernels`` times an older checkout's kernels with this
+    code."""
     from repro_torch.kernels import mlstm_cell as mc
     from repro_torch.kernels import rglru_scan as rs
     dev = torch.device("cuda")
-    bf = torch.bfloat16
     rng = np.random.RandomState(SEED + 5)
     out = {}
 
@@ -1247,43 +1329,77 @@ def time_recurrent(torch):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)
                                 * scale).to(dev, dtype)
 
+    def timed(name, runs, plain, nbytes, ops, shape, ops_per_s, **extra):
+        cold = _device_ms(torch, runs, 10)
+        warm = _device_ms(torch, runs[:1], 20)
+        bound, by = _bound(nbytes, ops, ops_per_s)
+        out[name] = dict(shape=shape, ms=cold, warm_ms=warm,
+                         wrapper_ms=_events_ms(torch, runs[0], 100),
+                         plain_ms=_events_ms(torch, plain, 3),
+                         copies=len(runs), library_ms=None, bound_ms=bound,
+                         bound_by=by, bytes=nbytes, ops=ops,
+                         share=bound / cold, **extra)
+
     # rglru_scan: one 512-token chunk of one RG-LRU layer
     B, S, D = 1, CHUNK, RG_DR
     a = torch.from_numpy((rng.rand(B, S, D) * 0.95).astype(
         np.float32)).to(dev)
     x, h0 = rand(B, S, D), rand(B, D)
-    ms = _events_ms(torch, lambda: rs.rglru_scan(a, x, h0), 100)
-    plain = _events_ms(torch, lambda: rs.rglru_scan_plain(a, x, h0), 3)
     nbytes, ops = 4 * (3 * B * S * D + 2 * B * D), 2 * B * S * D
-    bound, by = _bound(nbytes, ops, FP32_OPS_PER_S)
-    out["rglru_scan"] = dict(shape=f"(B, S, D) = {(B, S, D)}", ms=ms,
-                             plain_ms=plain, library_ms=None,
-                             bound_ms=bound, bound_by=by, bytes=nbytes,
-                             ops=ops)
+    sets = [(a.clone(), x.clone(), h0.clone()) for _ in range(_copies(
+        4 * 2 * B * S * D))]
+    # (a checkout older than the segmented scan has no plan)
+    plan = rs.launch_plan(a) if hasattr(rs, "launch_plan") else {}
+    timed("rglru_scan", [(lambda t=t: rs.rglru_scan(*t)) for t in sets],
+          lambda: rs.rglru_scan_plain(a, x, h0), nbytes, ops,
+          f"(B, S, D) = {(B, S, D)} f32", FP32_OPS_PER_S,
+          plan={k: plan[k] for k in ("vec", "CT", "P", "seg", "grid")
+                if k in plan})
+    del sets
     # mlstm_cell: one 256-token chunk of one mLSTM layer, bf16 q/k/v
     L, H, hd = XL_L, XL_H, XL_HD
+    bf = torch.bfloat16
     q, k, v = (rand(1, L, H, hd, dtype=bf, scale=0.3) for _ in range(3))
     il, fl = rand(1, L, H, scale=0.5), -rand(1, L, H, scale=0.3).abs()
     C0, n0 = rand(1, H, hd, hd, scale=0.1), rand(1, H, hd, scale=0.1).abs()
     m0 = torch.zeros((1, H), device=dev)
     args = (q, k, v, il, fl, C0, n0, m0)
-    ms = _events_ms(torch, lambda: mc.mlstm_chunk(*args), 50)
-    plain = _events_ms(torch, lambda: mc.mlstm_chunk_plain(*args), 5)
-    # q k^T and S v over the causal half of the (L, L) square (S is 0
-    # above the diagonal), q C0 and (k w)^T v over the whole state; q k^T
-    # has bf16 operands (exact on tensor cores with f32 sums), the others
-    # an f32 operand (S, C0, the decay weights w)
-    pairs = L * (L + 1) // 2
-    ops_bf16 = H * 2 * pairs * hd
-    ops_f32 = H * (2 * pairs * hd + 2 * 2 * L * hd * hd)
-    nbytes = (2 * 4 * L * H * hd + 4 * 2 * (H * hd * hd + H * hd + H)
-              + 4 * 2 * L * H)
-    bound, by = _bound_ms(nbytes, (ops_bf16 / BF16_OPS_PER_S
-                                   + ops_f32 / FP32_OPS_PER_S) * 1e3)
-    out["mlstm_cell"] = dict(shape=f"(B, L, H, hd) = {(1, L, H, hd)} bf16",
-                             ms=ms, plain_ms=plain, library_ms=None,
-                             bound_ms=bound, bound_by=by, bytes=nbytes,
-                             ops=f"{ops_bf16} bf16 + {ops_f32} f32")
+    nbytes, ops, old_ms = mlstm_bound(L, H, hd)
+    sets = [tuple(t.clone() for t in args) for _ in range(_copies(
+        sum(t.numel() * t.element_size() for t in args)))]
+    timed("mlstm_cell", [(lambda t=t: mc.mlstm_chunk(*t)) for t in sets],
+          lambda: mc.mlstm_chunk_plain(*args), nbytes, ops,
+          f"(B, L, H, hd) = {(1, L, H, hd)} bf16", BF16_OPS_PER_S,
+          old_bound_ms=old_ms)
+    del sets
+    return out
+
+
+def report_recurrent_timing(gpu, name, t):
+    """Print one recurrent kernel's timing of phase 12."""
+    line = (f"[{gpu}] {name} {t['shape']}: kernel {t['ms'] * 1e3:.2f} us "
+            f"device per launch cold (rotating over {t['copies']} copies "
+            f"of the inputs), {t['warm_ms'] * 1e3:.2f} warm; wrapper "
+            f"{t['wrapper_ms'] * 1e3:.2f} us per call (CUDA events around "
+            f"back-to-back calls); bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops), "
+            f"{t['share']:.1%} of it")
+    if "old_bound_ms" in t:
+        line += (f" (the first version's CUDA-core count: "
+                 f"{t['old_bound_ms'] * 1e3:.2f} us)")
+    if t.get("plan"):
+        line += f"; plan {t['plan']}"
+    line += (f"; plain {t['plain_ms'] * 1e3:.1f} us; no single PyTorch call "
+             f"computes this function")
+    print(line)
+
+
+def time_recurrent(torch):
+    """Phase 12: the recurrent kernels (``time_recurrent_kernels``) and the
+    head-dim 256 attention (``time_prefill``, ``time_decode``) at the
+    serving shapes; SDPA is the attention's yardstick."""
+    out = time_recurrent_kernels(torch)
+    rng = np.random.RandomState(SEED + 6)
     # the attention kernels at hd 256: a 512-token chunk after a 1024-token
     # hit, and a decode step over 8 rings of 2048 with contexts up to W
     out["prefill_attention hd 256"] = time_prefill(
@@ -1351,14 +1467,38 @@ def report_serving(gpu, sv):
               f"{c['tol'][1]})")
 
 
+#: the port's kernels by the names of their CUDA functions, as the
+#: profiler reports them (the f32 mlstm_cell runs four)
+PORT_KERNELS = {"route_score": ("route_wave",),
+                "prefill_attention": ("prefill_kernel", "prefill_wgmma"),
+                "paged_attention": ("paged_kernel",),
+                "rglru_scan": ("rglru_kernel",),
+                "mlstm_cell": ("cell_wgmma", "gates_kernel", "scores_kernel",
+                               "out_kernel", "state_kernel")}
+
+
+def port_kernel_times(us, count):
+    """{port kernel: (device us, device launches)} summed over the
+    profiler's device events ``us`` and ``count`` by name."""
+    import re
+    out = {}
+    for key, t in us.items():
+        for name, fns in PORT_KERNELS.items():
+            if any(re.search(rf"(^|[\s:]){f}[<(]", key) for f in fns):
+                tot, c = out.get(name, (0.0, 0))
+                out[name] = (tot + t, c + count[key])
+    return out
+
+
 def profile_steps(torch, gpu, arch):
     """``--profile``: where a serving step's time goes on the card.  Traces
     ``arch``'s steps at the serving path's shapes with ``torch.profiler``:
     5 decode steps of 8 slots at position ~2000, and 3 prefill chunks of
     512 tokens over a 1024-token prefix.  Prints the wall per step with
     and without the profiler, the device time summed over kernels (busy
-    share = device time / wall without the profiler) and the kernels that
-    take the most device time.  Then the model's rounding noise floor
+    share = device time / wall without the profiler), the kernels that
+    take the most device time and each port kernel's device time per step
+    (``PORT_KERNELS``), however small.  Then the model's rounding noise floor
     (``embedding_sensitivity``) over a 2748-token prompt in bf16, and for
     xLSTM-350M, whose logit check runs in f32, in f32 too."""
     import dataclasses
@@ -1418,6 +1558,10 @@ def profile_steps(torch, gpu, arch):
         for key, t in us.most_common(8):
             print(f"[{gpu}]   {t / n / 1e3:8.3f} ms  x{count[key] // n:<4d} "
                   f"{key[:90]}")
+        for name, (t, c) in port_kernel_times(us, count).items():
+            print(f"[{gpu}]   port kernel {name}: {t / n / 1e3:.3f} ms per "
+                  f"step ({t / n / 1e3 / busy:.1%} of the device time), "
+                  f"{c // n} device launches per step")
     del cache, slot
     gc.collect()
     prompt = rng.randint(0, cfg.vocab_size, 2 * SYS_PREFIX + 700)
@@ -1526,7 +1670,8 @@ def main() -> int:
           f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
     for line in ptxas_summary(_build.PTXAS):
         print(f"ptxas: {line}")
-    for line in sass_summary(("prefill_attention", "paged_attention")):
+    for line in sass_summary(("prefill_attention", "paged_attention",
+                              "mlstm_cell")):
         print(f"sass: {line}")
     if "--profile" in sys.argv[1:]:
         for arch in ("qwen2_7b", "recurrentgemma_9b", "xlstm_350m"):
@@ -1564,9 +1709,12 @@ def main() -> int:
     lm = results["lmetric"]["router"]
     # the main path's last full wave, scored against its final state
     tw = time_wave(torch, rs, lm, copy.deepcopy(trace[n_req - WAVE:n_req]))
-    print(f"[{gpu}] route_score kernel: {tw['kernel_ms'] * 1e3:.1f} us per "
-          f"wave ({tw['kind']}{tw['params']}, k={tw['k']}, n={tw['n']}, "
-          f"1 launch)")
+    print(f"[{gpu}] route_score kernel: {tw['device_ms'] * 1e3:.1f} us "
+          f"device per wave with cold inputs, "
+          f"{tw['device_warm_ms'] * 1e3:.1f} warm (profiler); "
+          f"{tw['kernel_ms'] * 1e3:.1f} us per wave in CUDA events around "
+          f"back-to-back launches ({tw['kind']}{tw['params']}, k={tw['k']}, "
+          f"n={tw['n']}, 1 launch)")
     print(f"[{gpu}] score stage, same wave, warm (median of 10): "
           f"{tw['stage_ms'] * 1e3:.1f} us (upload, launch, copy back); "
           f"of which the depth matrix's copy into pinned memory "
@@ -1638,10 +1786,7 @@ def main() -> int:
         if name.endswith("hd 256"):
             report_attention_timing(gpu, name, t)
             continue
-        print(f"[{gpu}] {name} {t['shape']}: kernel {t['ms'] * 1e3:.1f} us, "
-              f"plain {t['plain_ms'] * 1e3:.1f} us, no single PyTorch call "
-              f"computes this function; bound {t['bound_ms'] * 1e3:.2f} us "
-              f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops)")
+        report_recurrent_timing(gpu, name, t)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
@@ -1652,7 +1797,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/route_score.py:218",
         "launches": launches,
         "max_abs_err": max(worst, tw["max_abs_err"]),
-        "ms": tw["kernel_ms"], "plain_ms": tw["plain_ms"],
+        "ms": tw["device_ms"], "plain_ms": tw["plain_ms"],
         "bound_ms": tw["bound_ms"], "bound_by": tw["bound_by"],
         "library_ms": None}]}
     # the attention kernels' launches are those of every serving path

@@ -27,6 +27,16 @@ Run on a machine with a CUDA card, from the repo root:
 
 With no checkout given, only the slot copies are timed; ``--no-copies``
 skips them.
+
+``--kernels`` times each tree's ``rglru_scan`` and ``mlstm_cell`` instead
+(device time per launch, cold and warm, and the wrapper's wall:
+``chip_smoke.time_recurrent_kernels``), and ``--profile ARCH,...`` traces
+each tree's decode steps and prefill chunks of the named models
+(``chip_smoke.profile_steps``); both run THIS checkout's timing code
+against each tree's own package and kernels, so that an older tree is
+measured the same way:
+
+    python3 scripts/serving_ab.py --kernels build/ab/parent . . build/ab/parent
 """
 import argparse
 import json
@@ -58,20 +68,54 @@ print("RESULT " + json.dumps({
 """
 
 
-def run_tree(root, arch):
+#: ``--kernels`` and ``--profile``: this checkout's timing code
+#: (``chip_smoke.time_recurrent_kernels``, ``chip_smoke.profile_steps``)
+#: run against the tree's own package and kernels
+HERE_CHILD = r"""
+import json, os, sys
+here, tree, mode = sys.argv[1], os.path.abspath(sys.argv[2]), sys.argv[3]
+sys.path.insert(0, here)
+import torch
+import chip_smoke as c
+sys.path.insert(0, os.path.join(tree, "src"))
+from repro_torch.kernels import _build
+assert os.path.abspath(_build.__file__).startswith(tree), _build.__file__
+_build.build(c.KERNELS)
+if mode == "kernels":
+    t = c.time_recurrent_kernels(torch)
+    print("RESULT " + json.dumps(t))
+else:
+    gpu = c.card()
+    for arch in sys.argv[4:]:
+        c.profile_steps(torch, gpu, arch)
+    print("RESULT {}")
+"""
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_tree(root, arch, mode="serving", archs=()):
+    """Run one tree in a process of its own; returns the child's RESULT
+    (and, for ``profile``, its printed lines under "lines")."""
     root = os.path.abspath(root)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [root, os.path.join(root, "src")]))
+    if mode == "serving":
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root, os.path.join(root, "src")]))
+        argv = [sys.executable, "-c", CHILD, arch]
+    else:
+        env = dict(os.environ)
+        env.pop("PYTHONPATH", None)
+        argv = [sys.executable, "-c", HERE_CHILD, HERE, root, mode, *archs]
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CHILD, arch], cwd=root,
-                          env=env, capture_output=True, text=True,
-                          timeout=900)
+    proc = subprocess.run(argv, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=900)
     if proc.returncode != 0:
         sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
         raise SystemExit(f"{root}: exit {proc.returncode}")
-    line = next(x for x in proc.stdout.splitlines()
-                if x.startswith("RESULT "))
+    lines = proc.stdout.splitlines()
+    line = next(x for x in lines if x.startswith("RESULT "))
     out = json.loads(line[len("RESULT "):])
+    if mode == "profile":
+        out["lines"] = [x for x in lines if not x.startswith("RESULT ")]
     out.update(tree=root, process_s=time.perf_counter() - t0)
     return out
 
@@ -151,14 +195,28 @@ def main():
     ap.add_argument("--arch", default="qwen2_7b")
     ap.add_argument("--no-copies", action="store_true",
                     help="do not time the slot copies")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time each tree's rglru_scan and mlstm_cell "
+                         "with this checkout's timing code instead of "
+                         "serving")
+    ap.add_argument("--profile", metavar="ARCH[,ARCH...]",
+                    help="trace each tree's steps of these models with "
+                         "this checkout's --profile code instead of "
+                         "serving")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}")
+    mode = ("kernels" if args.kernels else
+            "profile" if args.profile else "serving")
     for root in args.trees:
-        print(json.dumps(run_tree(root, args.arch)), flush=True)
-    if args.no_copies:
+        out = run_tree(root, args.arch, mode,
+                       args.profile.split(",") if args.profile else ())
+        for line in out.pop("lines", []):
+            print(f"{root}: {line}")
+        print(json.dumps(out), flush=True)
+    if args.no_copies or mode != "serving":
         return
     nbytes, copies = time_slot_copies()
     for name, ms in copies.items():

@@ -8,10 +8,17 @@ update.  ``models.recurrent.mlstm_prefill`` chains it over the chunks of
 a prompt, exactly like the reference's chunkwise scan.
 
 For tensors on a CUDA device :func:`mlstm_chunk` launches the
-hand-written kernel ``csrc/mlstm_cell.cu`` (four kernels on one stream,
-f32 CUDA-core products; one launch of the wrapper counts once); for CPU
-tensors it runs :func:`mlstm_chunk_plain`, the reference's oracle
-``ref.mlstm_chunk_ref`` as plain PyTorch ops.
+hand-written kernel ``csrc/mlstm_cell.cu``.  With bf16 q/k/v (the serving
+path) that is one launch of a tensor-core kernel: output blocks (a slab
+of positions x value columns) recompute their slab's q k^T and never
+write the (L, L) scores to device memory, state blocks update tiles of C;
+each product with an f32 operand (the decayed scores S, C0, k * w_src)
+splits it into bf16 hi + lo and takes two passes, which
+:func:`mlstm_chunk_split_plain` spells out in plain PyTorch.  With f32
+q/k/v it is the first version: four kernels on one stream with f32
+CUDA-core products and an (L, L) scratch (one launch of the wrapper
+counts once).  For CPU tensors it runs :func:`mlstm_chunk_plain`, the
+reference's oracle ``ref.mlstm_chunk_ref`` as plain PyTorch ops.
 """
 from __future__ import annotations
 
@@ -28,8 +35,11 @@ NEG_INF = -1e30
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the gate pass keeps b and i of a chunk in shared memory
+#: every block keeps the chunk's gates in shared memory
 _MAX_L = 4096
+#: the bf16 kernel keeps a 64-row slab of q and a 64-key tile of k in
+#: shared memory
+_MAX_HD_BF16 = 512
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -86,13 +96,71 @@ def mlstm_chunk_plain(q, k, v, ilog, flog, C0, n0, m0
     return h.to(q.dtype), (C, n, m_new)
 
 
+def _hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (f32) as hi + lo, each rounded to bf16 (returned as f32)."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def mlstm_chunk_split_plain(q, k, v, ilog, flog, C0, n0, m0,
+                            split_kw: bool = True
+                            ) -> Tuple[torch.Tensor, State]:
+    """The bf16 kernel's arithmetic as plain PyTorch ops.
+
+    As :func:`mlstm_chunk_plain`, except where the kernel's tensor cores
+    take bf16 operands: each product with an f32 operand (the decayed
+    scores S in S v, C0 in q C0, k * w_src in (k w_src)^T v) splits it
+    into bf16 hi + lo and sums both products in f32; q, k and v are
+    already bf16.  m_t is the kernel's prefix max, b_t + max_{s<=t}(i_s -
+    b_s).  ``split_kw=False`` rounds k * w_src to bf16 once, with no lo
+    part, which shows why the kernel splits it."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ilog, flog = ilog.float(), flog.float()
+    C0, n0, m0 = C0.float(), n0.float(), m0.float()
+    b = torch.cumsum(flog, dim=1)                             # (B, L, H)
+    L = b.shape[1]
+    inter = b + m0[:, None]
+    m_t = torch.maximum(inter, b + torch.cummax(ilog - b, dim=1).values)
+    m_t[:, :L - 1] = m_t[:, :L - 1].clamp(min=NEG_INF)
+    dmat = b[:, :, None] - b[:, None, :, :] + ilog[:, None, :, :]
+    tidx = torch.arange(L, device=q.device)
+    causal = (tidx[:, None] >= tidx[None, :])[None, :, :, None]
+    dmat = torch.where(causal, dmat, NEG_INF)                 # (B, L, L, H)
+    w_intra = torch.exp(dmat - m_t[:, :, None])
+    w_inter = torch.exp(inter - m_t)
+    scores = torch.einsum("blhd,bshd->blsh", qf, kf) * w_intra
+    s_hi, s_lo = _hi_lo(scores)
+    c_hi, c_lo = _hi_lo(C0)
+    qc = (torch.einsum("blhd,bhde->blhe", qf, c_hi)
+          + torch.einsum("blhd,bhde->blhe", qf, c_lo))
+    h_num = (qc * w_inter[..., None]
+             + torch.einsum("blsh,bshd->blhd", s_hi, vf)
+             + torch.einsum("blsh,bshd->blhd", s_lo, vf))
+    denom = (scores.sum(dim=2)
+             + torch.einsum("blhd,bhd->blh", qf, n0) * w_inter)
+    denom = torch.maximum(denom.abs(), torch.exp(-m_t))
+    h = h_num / denom[..., None]
+    bL = b[:, -1]
+    m_new = torch.maximum(bL + m0, (bL[:, None] - b + ilog).amax(dim=1))
+    w_old = torch.exp(bL + m0 - m_new)
+    w_src = torch.exp(bL[:, None] - b + ilog - m_new[:, None])
+    kw = kf * w_src[..., None]                                # (B, L, H, hd)
+    kw_hi, kw_lo = _hi_lo(kw)
+    upd = torch.einsum("blhd,blhe->bhde", kw_hi, vf)
+    if split_kw:
+        upd = upd + torch.einsum("blhd,blhe->bhde", kw_lo, vf)
+    C = C0 * w_old[..., None, None] + upd
+    n = n0 * w_old[..., None] + kw.sum(dim=1)
+    return h.to(q.dtype), (C, n, m_new)
+
+
 _P = ctypes.c_void_p
 
 
 def _fn():
     fn = _build.load("mlstm_cell").mlstm_cell_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [_P] * 14 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_int] + [_P] * 14 + [ctypes.c_int] * 5
                        + [_P])
         fn.restype = ctypes.c_int
     return fn
@@ -117,21 +185,31 @@ def _launch(q, k, v, ilog, flog, C0, n0, m0):
     if L > _MAX_L:
         raise ValueError(f"mlstm_chunk kernel takes chunks of at most "
                          f"{_MAX_L} positions, got {L}")
-    if max(B * L * H * hd, B * H * hd * hd, B * H * L * L) >= 2 ** 31:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and hd > _MAX_HD_BF16:
+        raise ValueError(f"mlstm_chunk kernel takes a bfloat16 head dim of "
+                         f"at most {_MAX_HD_BF16}, got {hd}")
+    if max(B * L * H * hd, B * H * hd * hd,
+           0 if bf16 else B * H * L * L) >= 2 ** 31:
         raise ValueError("mlstm_chunk kernel: tensors too large")
     h = torch.empty_like(q)
     C = torch.empty_like(C0)
     n = torch.empty_like(n0)
     m = torch.empty_like(m0)
-    rows = torch.empty(B * H * (4 * L + 1), dtype=torch.float32,
-                       device=q.device)
-    S = torch.empty((B, H, L, L), dtype=torch.float32, device=q.device)
+    ptrs = [t.data_ptr() for t in (q, k, v, ilog, flog, C0, n0, m0, h, C, n,
+                                   m)]
+    if bf16:
+        # one launch, no scratch
+        scratch = (0, 0)
+        vec = int(hd % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+    else:
+        rows = torch.empty(B * H * (4 * L + 1), dtype=torch.float32,
+                           device=q.device)
+        S = torch.empty((B, H, L, L), dtype=torch.float32, device=q.device)
+        scratch = (rows.data_ptr(), S.data_ptr())
+        vec = 0
     with torch.cuda.device(q.device):
-        rc = _fn()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), ilog.data_ptr(), flog.data_ptr(),
-                   C0.data_ptr(), n0.data_ptr(), m0.data_ptr(), h.data_ptr(),
-                   C.data_ptr(), n.data_ptr(), m.data_ptr(), rows.data_ptr(),
-                   S.data_ptr(), B, L, H, hd,
+        rc = _fn()(_DTYPES[q.dtype], *ptrs, *scratch, B, L, H, hd, vec,
                    torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mlstm_cell kernel launch failed: cudaError "

@@ -14,7 +14,9 @@ Tolerances, kernel against plain version on the same inputs:
   (tiles of 16), and h divides by a normaliser that can be small.
 * ``mlstm_chunk``, bfloat16 q/k/v: h is rounded to bf16 by both (atol
   2e-2, rtol 1e-2: one bf16 ulp of |h| up to ~4); the f32 state as
-  float32.
+  float32.  The kernel's tensor-core products split each f32 operand
+  into bf16 hi + lo (``tests/test_torch_recurrent_split.py`` shows on
+  the CPU that this holds these tolerances).
 * attention: as ``tests/test_torch_attention_cuda.py`` (f32 atol 1e-4;
   bf16 |diff| <= 5e-3 + 1e-2 |plain|, with q drawn at scale 2 so that
   each softmax peaks over a few keys).
@@ -62,7 +64,13 @@ def _assert_attn_close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,D", [(2, 40, 96), (1, 7, 130), (3, 64, 64),
                                    (2, 257, 128), (1, 512, 4096),
-                                   (1, 333, 4000), (2, 17, 31)])
+                                   (1, 333, 4000), (2, 17, 31),
+                                   # the segment and window edges of the
+                                   # serving width's plan (P = 32, 16
+                                   # positions a segment), and B = 2
+                                   (1, 1, 4096), (1, 31, 4096),
+                                   (1, 33, 4096), (1, 511, 4096),
+                                   (1, 513, 4096), (2, 512, 4096)])
 def test_rglru_scan_kernel_matches_plain(card, B, S, D):
     rng = np.random.RandomState(B * 7 + S + D)
     a = torch.from_numpy((rng.rand(B, S, D) * 0.95).astype(
@@ -76,6 +84,29 @@ def test_rglru_scan_kernel_matches_plain(card, B, S, D):
     assert rs.LAUNCHES == n0 + 1
     assert (h - hp).abs().max().item() <= 2e-5
     assert (hl - hlp).abs().max().item() <= 2e-5
+    assert torch.equal(hl, h[:, -1])
+
+
+@pytest.mark.cuda
+def test_rglru_scan_kernel_unaligned_tensors_match_plain(card):
+    """Contiguous tensors 4 bytes off a 16-byte boundary take the scalar
+    channel path (segment_plan's vec = 1)."""
+    rng = np.random.RandomState(9)
+    B, S, D = 1, 512, 4096
+
+    def off(x):
+        buf = torch.empty(x.numel() + 1, device=card)
+        buf[1:].copy_(x.reshape(-1))
+        return buf[1:].view(x.shape)
+
+    a = off(torch.from_numpy((rng.rand(B, S, D) * 0.95).astype(
+        np.float32)).to(card))
+    x, h0 = off(_randn(rng, (B, S, D), card)), off(_randn(rng, (B, D), card))
+    assert rs.launch_plan(a)["vec"] == 1
+    h, hl = rs.rglru_scan(a, x, h0)
+    hp, hlp = rs.rglru_scan_plain(a, x, h0)
+    torch.cuda.synchronize()
+    assert (h - hp).abs().max().item() <= 2e-5
     assert torch.equal(hl, h[:, -1])
 
 
@@ -126,7 +157,19 @@ def _close_mlstm(got, want, dtype):
                                          (1, 37, 4, 512, -1e30),
                                          (1, 256, 4, 512, None),
                                          (1, 256, 4, 128, 0.0),
-                                         (1, 1, 2, 64, 0.0)])
+                                         (1, 1, 2, 64, 0.0),
+                                         # the engines' warm-up chunk,
+                                         # B = 2 at the serving widths,
+                                         # ragged slabs, a head dim that
+                                         # is not a multiple of 64 (no
+                                         # tensor maps) or of 8 (scalar
+                                         # loads)
+                                         (1, 8, 4, 512, 0.0),
+                                         (2, 8, 4, 512, -1e30),
+                                         (2, 256, 4, 512, None),
+                                         (1, 300, 4, 512, None),
+                                         (1, 100, 2, 96, None),
+                                         (1, 50, 2, 36, 0.0)])
 def test_mlstm_chunk_kernel_matches_plain(card, B, L, H, hd, m0, dtype):
     rng = np.random.RandomState(B + L + H + hd)
     inputs = _mlstm_inputs(rng, card, B, L, H, hd, m0, dtype)
