@@ -81,7 +81,24 @@ Phases (each raises on failure, so any failure exits nonzero):
    wrapper's time per call in CUDA events, beside their plain versions
    and bounds (``mlstm_bound``: the tensor-core work, beside the first
    version's CUDA-core count); and the head-dim 256 attention timed as in
-   phase 7.
+   phase 7;
+13. cluster simulation — ``ClusterSim`` over 16 Qwen2-7B instances on
+   the port's H100 latency profile (``spec_from_config``; KV$ per
+   instance from the card's memory less the weights, ``sim_kv_capacity``)
+   on three traces (chatbot, agent, coder: the paper's chatbot, API and
+   coding-agent workloads), 2000 requests each at 0.8 x the trace's
+   estimated capacity, arrivals rounded to a 50 ms scheduling tick, under
+   lmetric, vllm and linear; then ``PDDisaggSim`` with 8 prefill and 8
+   decode instances on the chatbot trace.  Each run counts
+   ``route_score`` launches from zero and must finish every request with
+   one launch per arrival wave of two or more; the lmetric chatbot run
+   and the PD run must equal the same runs with the mirror on the CPU,
+   and the PD run its request-by-request routing.  Prints TTFT/TPOT (in
+   simulated time), KV$ hit ratio, SLO attainment, wave sizes, launches,
+   host wall and the score stage's µs per wave; one wave's score stage
+   timed alone (``sim_wave_time``: the kernel's device time inside it);
+   and the profile's predicted step times beside Qwen2-7B's measured
+   ones (phase 6's walls, and each step alone: wall and device time).
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed);
@@ -1490,20 +1507,12 @@ def port_kernel_times(us, count):
     return out
 
 
-def profile_steps(torch, gpu, arch):
-    """``--profile``: where a serving step's time goes on the card.  Traces
-    ``arch``'s steps at the serving path's shapes with ``torch.profiler``:
-    5 decode steps of 8 slots at position ~2000, and 3 prefill chunks of
-    512 tokens over a 1024-token prefix.  Prints the wall per step with
-    and without the profiler, the device time summed over kernels (busy
-    share = device time / wall without the profiler), the kernels that
-    take the most device time and each port kernel's device time per step
-    (``PORT_KERNELS``), however small.  Then the model's rounding noise floor
-    (``embedding_sensitivity``) over a 2748-token prompt in bf16, and for
-    xLSTM-350M, whose logit check runs in f32, in f32 too."""
-    import dataclasses
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def step_fns(torch, arch):
+    """``arch`` with random bf16 weights on the card, and two closures at
+    the serving path's shapes: a decode step of MAX_BATCH slots at
+    position ~2000, and a CHUNK-token prefill chunk over a
+    SYS_PREFIX-token prefix, each ending with its argmax on the host.
+    Returns (cfg, model, params, rng, decode, prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     cfg = get_config(arch)
@@ -1526,6 +1535,25 @@ def profile_steps(torch, gpu, arch):
             slot, [SYS_PREFIX], last_only=True)
         logits.argmax(-1).cpu()
 
+    return cfg, model, params, rng, decode, prefill
+
+
+def profile_steps(torch, gpu, arch):
+    """``--profile``: where a serving step's time goes on the card.  Traces
+    ``arch``'s steps at the serving path's shapes with ``torch.profiler``:
+    5 decode steps of 8 slots at position ~2000, and 3 prefill chunks of
+    512 tokens over a 1024-token prefix.  Prints the wall per step with
+    and without the profiler, the device time summed over kernels (busy
+    share = device time / wall without the profiler), the kernels that
+    take the most device time and each port kernel's device time per step
+    (``PORT_KERNELS``), however small.  Then the model's rounding noise floor
+    (``embedding_sensitivity``) over a 2748-token prompt in bf16, and for
+    xLSTM-350M, whose logit check runs in f32, in f32 too."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import Model
+    cfg, model, params, rng, decode, prefill = step_fns(torch, arch)
     for name, fn, n in (("decode step (8 slots)", decode, 5),
                         (f"prefill chunk ({CHUNK} over {SYS_PREFIX})",
                          prefill, 3)):
@@ -1562,7 +1590,7 @@ def profile_steps(torch, gpu, arch):
             print(f"[{gpu}]   port kernel {name}: {t / n / 1e3:.3f} ms per "
                   f"step ({t / n / 1e3 / busy:.1%} of the device time), "
                   f"{c // n} device launches per step")
-    del cache, slot
+    del decode, prefill
     gc.collect()
     prompt = rng.randint(0, cfg.vocab_size, 2 * SYS_PREFIX + 700)
     floors = [("bf16", model, params)]
@@ -1648,6 +1676,303 @@ def sass_summary(names):
             out.append(f"{name}.so {head}: " + ", ".join(
                 f"{n} {op}" for op, n in counts.items()))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the cluster simulation (phase 13): ClusterSim and PDDisaggSim
+# ---------------------------------------------------------------------------
+#: the paper's testbed (§4.1): 16 Qwen2-7B instances; one trace for each
+#: kind of workload it evaluates (chatbots, API calls, coding agents)
+SIM_INSTANCES = 16
+SIM_TRACES = ("chatbot", "agent", "coder")
+SIM_POLICIES = ("lmetric", "vllm", "linear")
+#: requests per trace, load as a share of the trace's estimated capacity,
+#: the scheduling tick arrivals are rounded to (so that same-time waves
+#: form), and the traces' seed
+SIM_REQUESTS, SIM_LOAD, SIM_TICK, SIM_SEED = 2000, 0.8, 0.05, 7
+#: one instance's KV$: the card's 80 GiB, of which the engine may fill
+#: 0.9 (vLLM's default memory share), less Qwen2-7B's bf16 weights as
+#: phase 6 measures them on the card (PERF.md §5)
+CARD_GIB, MEM_SHARE, QWEN_WEIGHTS_GIB = 80, 0.9, 14.26
+PD_PREFILL, PD_DECODE = 8, 8
+
+
+def sim_kv_capacity(spec):
+    """(tokens, how): one instance's KV$ capacity in tokens."""
+    free = (CARD_GIB * MEM_SHARE - QWEN_WEIGHTS_GIB) * 2 ** 30
+    return int(free // spec.kv_bytes_per_token), (
+        f"({CARD_GIB} GiB x {MEM_SHARE} - {QWEN_WEIGHTS_GIB} GiB of bf16 "
+        f"weights) / {spec.kv_bytes_per_token} B of KV per token")
+
+
+def sim_trace(family, spec, n_req):
+    """The first ``n_req`` requests of ``family`` at SIM_LOAD x its
+    estimated capacity on SIM_INSTANCES instances (estimated on a
+    300-second draw of the family), arrivals rounded to SIM_TICK and
+    re-sorted (stably: a tick keeps its requests in rid order).  Returns
+    (trace, qps)."""
+    from repro_torch.workloads.traces import (estimate_capacity_qps,
+                                              make_trace)
+    probe = make_trace(family, qps=20.0, duration=300.0, seed=SIM_SEED)
+    qps = SIM_LOAD * estimate_capacity_qps(spec, probe, SIM_INSTANCES)
+    duration = n_req / qps
+    trace = make_trace(family, qps=qps, duration=duration, seed=SIM_SEED)
+    while len(trace) < n_req:
+        duration *= 1.5
+        trace = make_trace(family, qps=qps, duration=duration,
+                           seed=SIM_SEED)
+    trace = trace[:n_req]
+    for r in trace:
+        r.arrival = round(r.arrival / SIM_TICK) * SIM_TICK
+    trace.sort(key=lambda r: r.arrival)
+    return trace, qps
+
+
+def wave_sizes(trace):
+    """{wave size: count} of the same-timestamp arrival groups."""
+    return dict(sorted(collections.Counter(collections.Counter(
+        r.arrival for r in trace).values()).items()))
+
+
+def _finished(done):
+    return [(r.rid, r.sched_to, r.hit_tokens, r.t_first_token, r.t_finish)
+            for r in done]
+
+
+def sim_path(device="cuda", n_req=SIM_REQUESTS):
+    """Phase 13: ``ClusterSim`` on SIM_INSTANCES instances with the
+    Qwen2-7B spec on the port's H100 profile, every (trace, policy) of
+    SIM_TRACES x SIM_POLICIES, then ``PDDisaggSim`` with PD_PREFILL
+    prefill and PD_DECODE decode instances on the chatbot trace.  Each
+    run counts ``route_score`` launches from zero; every run must finish
+    every request and launch once per wave of two or more (none on the
+    CPU); the lmetric chatbot run and the PD run must equal their runs
+    with the mirror on the CPU, and the PD run its request-by-request
+    routing.  Returns the numbers to print.
+
+    ``device="cpu"`` rehearses the phase with the plain version of
+    ``route_score`` (no launches are counted there)."""
+    from repro_torch.cluster.metrics import summarize
+    from repro_torch.cluster.pd_disagg import PDDisaggSim
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.configs import get_config
+    from repro_torch.core import Router, make_policy, spec_from_config
+    from repro_torch.kernels import route_score as rs
+    on_card = device != "cpu"
+    spec0 = spec_from_config(get_config("qwen2_7b"))
+    kv, how = sim_kv_capacity(spec0)
+    spec = spec_from_config(get_config("qwen2_7b"), kv_capacity_tokens=kv)
+
+    def run(make_sim, trace, dev, want_waves):
+        rs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sim = make_sim(dev)
+        done = sim.run(copy.deepcopy(trace))
+        wall = time.perf_counter() - t0
+        launches = rs.LAUNCHES
+        if len(done) != len(trace):
+            raise AssertionError(f"{len(done)} of {len(trace)} requests "
+                                 f"finished")
+        if launches != (want_waves if dev != "cpu" else 0):
+            raise AssertionError(f"route_score launched {launches} times "
+                                 f"for {want_waves} waves of two or more")
+        return sim, done, wall, launches
+
+    out = {"kv": kv, "how": how, "spec": spec, "runs": [], "launches": 0}
+    t_phase = time.perf_counter()
+    traces = {}
+    for family in SIM_TRACES:
+        trace, qps = sim_trace(family, spec, n_req)
+        sizes = wave_sizes(trace)
+        multi = sum(c for k, c in sizes.items() if k > 1)
+        if not multi:
+            raise AssertionError(f"{family}: no arrival wave of two or "
+                                 f"more, so no launch to count")
+        traces[family] = (trace, multi)
+        for policy in SIM_POLICIES:
+            def cluster(dev, policy=policy):
+                return ClusterSim(Router(make_policy(policy), SIM_INSTANCES,
+                                         kv_capacity_tokens=kv, device=dev),
+                                  spec)
+            sim, done, wall, launches = run(cluster, trace, device, multi)
+            if sim.router.pipeline.waves != multi:
+                raise AssertionError(f"{sim.router.pipeline.waves} device "
+                                     f"waves for {multi} waves of two or "
+                                     f"more")
+            same_cpu = None
+            if family == "chatbot" and policy == "lmetric":
+                _, plain, _, _ = run(cluster, trace, "cpu", multi)
+                if _finished(plain) != _finished(done):
+                    raise AssertionError("ClusterSim lmetric chatbot: the "
+                                         "card's run != the CPU's")
+                same_cpu = True
+                # the run's router and its largest wave, for the timing
+                # of one wave's score stage (``sim_wave_time``)
+                at = collections.Counter(r.arrival for r in trace)
+                t_max = max(at, key=at.get)
+                out["timing"] = (sim.router, [r for r in trace
+                                              if r.arrival == t_max])
+            out["launches"] += launches
+            out["runs"].append({
+                "what": f"{family} {policy}", "qps": qps,
+                "span": trace[-1].arrival - trace[0].arrival,
+                "summary": summarize(done, per_family_slo=True),
+                "sizes": sizes, "waves": multi, "launches": launches,
+                "wall": wall, "stages": sim.router.stage_stats(),
+                "same_cpu": same_cpu})
+
+    class Sequential(PDDisaggSim):
+        def _on_arrivals(self, reqs):
+            for r in reqs:
+                self._on_arrival(r)
+
+    trace, multi = traces["chatbot"]
+
+    def pd(dev, cls=PDDisaggSim):
+        return cls(PD_PREFILL, PD_DECODE, spec, kv_capacity_tokens=kv,
+                   device=dev)
+    sim, done, wall, launches = run(pd, trace, device, multi)
+    _, plain, _, _ = run(pd, trace, "cpu", multi)
+    _, seq, _, _ = run(lambda dev: pd(dev, Sequential), trace, device, 0)
+    if _finished(plain) != _finished(done):
+        raise AssertionError("PDDisaggSim: the card's run != the CPU's")
+    if _finished(seq) != _finished(done):
+        raise AssertionError("PDDisaggSim: waves != request-by-request "
+                             "routing")
+    out["launches"] += launches
+    out["runs"].append({
+        "what": f"chatbot PD {PD_PREFILL}+{PD_DECODE}",
+        "qps": out["runs"][0]["qps"], "span": out["runs"][0]["span"],
+        "summary": summarize(done, per_family_slo=True),
+        "sizes": wave_sizes(trace), "waves": multi, "launches": launches,
+        "wall": wall, "stages": None, "same_cpu": True})
+    out["wall"] = time.perf_counter() - t_phase
+    return out
+
+
+def sim_wave_time(torch, rs, router, wave_reqs, reps=50):
+    """One simulator wave's score stage, warm (the mirror was just
+    uploaded, and a wave of 16 instances stays in L2): the kernel's
+    device time per launch (``torch.profiler``) and CUDA-event time per
+    launch, the whole stage as the pipeline runs it (upload, launch, copy
+    back, wait; median of ``reps``), and the plain version's time."""
+    policy, f = router.policy, router.factory
+    depth, lcp, plen = policy.wave_inputs(copy.deepcopy(wave_reqs), f)
+    kind, params = policy.batch_kind, policy._batch_params()
+    cols = f.device_view()
+    dev = cols[0].device
+    depth_d = torch.from_numpy(depth).to(dev)
+    aux_d = torch.from_numpy(rs._pack_aux(lcp, plen, 0)).to(dev)
+
+    def launch():
+        return rs.route_wave_device(kind, params, BLOCK, cols, depth_d,
+                                    aux_d)
+
+    stage = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        policy.plan_collect(policy.plan_submit((depth, lcp, plen), f))
+        stage.append(time.perf_counter() - t0)
+    plain = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rs.route_wave_ref(kind, params, BLOCK, *cols, depth_d, lcp, plen, 0)
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t0)
+    k, n = depth.shape
+    nbytes, ops = wave_bound(kind, params, k, n)
+    return {"k": k, "n": n, "device_ms": _device_ms(torch, [launch], reps),
+            "events_ms": _events_ms(torch, launch, reps),
+            "stage_ms": float(np.median(stage)) * 1e3,
+            "plain_ms": float(np.median(plain)) * 1e3,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            ops / FP64_OPS_PER_S) * 1e3}
+
+
+def sim_step_times(torch, spec, served):
+    """The H100 profile's predicted step times at phase 6's shapes (a
+    CHUNK-token prefill chunk; a decode step of MAX_BATCH slots at
+    position ~2000) beside Qwen2-7B's on the card: phase 6's median
+    walls, and the two steps of ``step_fns`` timed alone (wall, and
+    device time per step from ``torch.profiler``)."""
+    from repro_torch.core import LatencyModel
+    lm = LatencyModel(spec)
+    sv = served["qwen2_7b"]
+    med = (lambda v: float(np.median(v)) * 1e3 if v else float("nan"))
+    out = {
+        "prefill": {"predicted": lm.step_time(CHUNK, 0, 0) * 1e3,
+                    "served": med([c[4] for c in sv["chunks"]
+                                   if c[2] == CHUNK and not c[5]])},
+        "decode": {"predicted": lm.step_time(0, MAX_BATCH,
+                                             MAX_BATCH * 2000) * 1e3,
+                   "served": med([d[4] for d in sv["decodes"]])},
+        "decode_bs": float(np.median([d[3] for d in sv["decodes"]])),
+        "layers": sv["cfg"].n_layers}
+    cfg, _, _, _, decode, prefill = step_fns(torch, "qwen2_7b")
+    out["alone_layers"] = cfg.n_layers
+    for name, fn, n in (("decode", decode, 5), ("prefill", prefill, 3)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out[name]["wall"] = (time.perf_counter() - t0) / n * 1e3
+        out[name]["device"] = _device_ms(torch, [fn], n)
+    del decode, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_sim(gpu, sim, steps=None, wave=None):
+    """Print phase 13's numbers."""
+    tag = f"[{gpu}] simulation:"
+    spec = sim["spec"]
+    print(f"{tag} {SIM_INSTANCES} x {spec.name} on the H100 profile "
+          f"(peak {spec.peak_flops:.4g} FLOP/s, HBM {spec.hbm_bw:.4g} B/s, "
+          f"mfu {spec.mfu}, step overhead {spec.step_overhead} s, chunk "
+          f"{spec.chunk_tokens}); KV$ per instance {sim['kv']} tokens = "
+          f"{sim['how']}; arrivals rounded to {SIM_TICK * 1e3:.0f} ms; "
+          f"times are simulated; SLO per family (core/types.py)")
+    for r in sim["runs"]:
+        s, st = r["summary"], r["stages"]
+        score = (f"score stage {st['score_us']:.1f} us/wave, walk "
+                 f"{st['walk_us']:.1f}, commit {st['commit_us']:.1f}"
+                 if st else "no stage timings (route_wave called directly)")
+        print(f"{tag} {r['what']}: {s['n']} finished at {r['qps']:.2f} "
+              f"req/s offered over {r['span']:.2f} s | TTFT mean "
+              f"{s['ttft_mean'] * 1e3:.2f} ms p50 {s['ttft_p50'] * 1e3:.2f}"
+              f" p99 {s['ttft_p99'] * 1e3:.2f} | TPOT mean "
+              f"{s['tpot_mean'] * 1e3:.3f} ms p99 {s['tpot_p99'] * 1e3:.3f}"
+              f" | KV$ hit {s['kv_hit_ratio']:.4f} | SLO "
+              f"{s['slo_attainment']:.4f} | waves of >= 2: {r['waves']}, "
+              f"sizes {r['sizes']} | route_score launches {r['launches']} "
+              f"| host wall {r['wall']:.2f} s, {score}"
+              + (" | == CPU run" if r["same_cpu"] else ""))
+    if wave is not None:
+        print(f"{tag} one wave's score stage (lmetric chatbot router after "
+              f"its run, its largest wave: k={wave['k']}, n={wave['n']}, "
+              f"warm): {wave['stage_ms'] * 1e3:.1f} us (median of 50: "
+              f"mirror and inputs up, launch, results back, wait), of "
+              f"which the kernel {wave['device_ms'] * 1e3:.2f} us device "
+              f"(profiler), {wave['events_ms'] * 1e3:.2f} us per launch in "
+              f"CUDA events; plain version {wave['plain_ms'] * 1e3:.1f} us;"
+              f" bound {wave['bound_ms'] * 1e3:.4f} us")
+    served = {"prefill": f"phase 6 median wall of a {CHUNK}-token chunk "
+                         f"not ending its prompt",
+              "decode": f"phase 6 median wall of a decode step (median "
+                        f"batch {steps['decode_bs'] if steps else 0:.0f})"}
+    shapes = {"prefill": f"{CHUNK}-token chunk over {SYS_PREFIX} cached",
+              "decode": f"{MAX_BATCH} slots at position ~2000"}
+    for name, shape in shapes.items() if steps else ():
+        t = steps[name]
+        print(f"{tag} step time, {name} ({shape}): H100 profile predicts "
+              f"{t['predicted']:.3f} ms; Qwen2-7B on the card: "
+              f"{served[name]} {t['served']:.3f} ms ({steps['layers']} "
+              f"layers); the step alone {t['wall']:.3f} ms wall, "
+              f"{t['device']:.3f} ms device ({steps['alone_layers']} "
+              f"layers)")
 
 
 def main() -> int:
@@ -1787,6 +2112,20 @@ def main() -> int:
             report_attention_timing(gpu, name, t)
             continue
         report_recurrent_timing(gpu, name, t)
+
+    # ---- phase 13: the cluster simulation ----------------------------
+    # free the main path's 16384-instance routers (millions of host
+    # objects) first, so that the simulator's host walls do not pay for
+    # collecting them
+    del results, lm, r
+    gc.collect()
+    t0 = time.perf_counter()
+    sim = sim_path()
+    wave = sim_wave_time(torch, rs, *sim["timing"])
+    steps = sim_step_times(torch, sim["spec"], served)
+    report_sim(gpu, sim, steps, wave)
+    print(f"[{gpu}] simulation: {sim['wall']:.1f} s for the runs, "
+          f"{time.perf_counter() - t0:.1f} s with the step timing")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
@@ -1795,7 +2134,7 @@ def main() -> int:
         "name": "route_score", "route": "cuda",
         "source": "src/repro_torch/csrc/route_score.cu",
         "replaces": "src/repro/kernels/route_score.py:218",
-        "launches": launches,
+        "launches": launches + sim["launches"],
         "max_abs_err": max(worst, tw["max_abs_err"]),
         "ms": tw["device_ms"], "plain_ms": tw["plain_ms"],
         "bound_ms": tw["bound_ms"], "bound_by": tw["bound_by"],

@@ -1,7 +1,9 @@
-"""Serving-quality metrics — port of ``repro.cluster.metrics`` (``pct``
-and ``summarize``: TTFT/TPOT percentiles, SLO attainment, goodput and
-per-family breakdowns).  The interference, hardware-class, overload and
-CDF helpers arrive with the simulator (ROADMAP Queue A)."""
+"""Serving-quality metrics — port of ``repro.cluster.metrics``: ``pct``
+and ``summarize`` (TTFT/TPOT percentiles, SLO attainment, goodput and
+per-family breakdowns), ``cdf``, ``imbalance_stats`` (Fig. 10's
+per-window prefill spread) and ``fmt_row``.  The interference,
+hardware-class and overload summaries arrive with observability, fleets
+and overload control (ROADMAP Queue A items 5-7)."""
 from __future__ import annotations
 
 import math
@@ -83,3 +85,39 @@ def summarize(requests: List[Request], slo_ttft: float = SLO_TTFT,
                            per_family_slo=per_family_slo)
             for fam, rs in sorted(fams.items())}
     return out
+
+
+def cdf(xs: Sequence[float], n_points: int = 50):
+    xs = np.sort(np.asarray(xs))
+    if len(xs) == 0:
+        return [], []
+    qs = np.linspace(0, 100, n_points)
+    return list(np.percentile(xs, qs)), list(qs / 100.0)
+
+
+def imbalance_stats(profile: Dict[int, List[float]]) -> Dict[str, float]:
+    """Std-dev of per-instance prefill seconds across windows; also the
+    paper's Fig. 10 metric: pick the window-wise top-2 spread."""
+    if not profile:
+        return {"mean_std": 0.0, "max_spread": 0.0}
+    stds, spreads = [], []
+    for w, vals in profile.items():
+        v = np.asarray(vals)
+        stds.append(float(v.std()))
+        spreads.append(float(v.max() - v.min()))
+    return {"mean_std": float(np.mean(stds)),
+            "max_spread": float(np.max(spreads))}
+
+
+def fmt_row(name: str, s: Dict[str, float]) -> str:
+    row = (f"{name:28s} n={s['n']:6d} "
+           f"TTFT mean={s['ttft_mean'] * 1e3:9.1f}ms "
+           f"p50={s['ttft_p50'] * 1e3:8.1f} p95={s['ttft_p95'] * 1e3:9.1f} "
+           f"p99={s['ttft_p99'] * 1e3:9.1f} | "
+           f"TPOT mean={s['tpot_mean'] * 1e3:7.2f}ms "
+           f"p99={s['tpot_p99'] * 1e3:7.2f} | "
+           f"hit={s['kv_hit_ratio'] * 100:5.1f}%")
+    if "slo_attainment" in s:
+        row += (f" | slo={s['slo_attainment'] * 100:5.1f}% "
+                f"good={s['goodput_rps']:6.2f}/s")
+    return row

@@ -121,6 +121,56 @@ class ModelConfig:
         return p, 1, ()
 
     # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Analytic parameter count (total, incl. all experts)."""
+        D, H, KV = self.d_model, self.n_heads, self.n_kv_heads
+        hd = self.resolved_head_dim
+        F, V = self.d_ff, self.vocab_size
+        moe_d_ff = self.moe_d_ff or self.d_ff
+        total = V * D                              # embed
+        if not self.tie_embeddings:
+            total += V * D
+        n_ffn_mats = 3 if self.ffn_act in ("swiglu", "geglu") else 2
+        for kind in self.block_pattern:
+            if kind in ("attn", "swa", "xattn"):
+                attn = D * H * hd + 2 * D * KV * hd + H * hd * D
+                if kind == "xattn":
+                    attn *= 2                      # self + cross
+                total += attn
+                if self.n_experts:
+                    total += self.n_experts * n_ffn_mats * D * moe_d_ff
+                    total += D * self.n_experts    # router
+                    if self.dense_residual_d_ff:
+                        total += n_ffn_mats * D * self.dense_residual_d_ff
+                else:
+                    total += n_ffn_mats * D * F
+            elif kind == "rglru":
+                dr = self.resolved_d_rnn
+                total += 2 * D * dr + dr * D + dr * self.conv_width + 3 * dr
+                total += n_ffn_mats * D * F
+            elif kind == "mlstm":
+                di = 2 * D
+                # up (D,2di) + wq,wk (di,di) + down (di,D) + gates (di,2H)
+                total += D * 2 * di + 2 * di * di + di * D + di * 2 * H
+            elif kind == "slstm":
+                total += 4 * D * D + 4 * D * D + n_ffn_mats * D * (4 * D // 3)
+        if self.enc_layers:
+            eD = self.enc_d_model or D
+            enc_attn = 4 * eD * eD
+            total += self.enc_layers * (enc_attn + 2 * eD * 4 * eD)
+        return total
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: top_k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        n_ffn_mats = 3 if self.ffn_act in ("swiglu", "geglu") else 2
+        moe_layers = sum(1 for k in self.block_pattern if k in ("attn", "swa"))
+        inactive = (self.n_experts - self.top_k) * n_ffn_mats * \
+            self.d_model * (self.moe_d_ff or self.d_ff) * moe_layers
+        return self.param_count() - inactive
+
+    # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: <=2 scan units, d_model<=512, <=4 experts."""
         unit, _, _ = self.repeating_unit()

@@ -6,6 +6,8 @@ order.  Prompts are block-id sequences (64-token blocks): an app-level
 system prefix shared across conversations of the same app, plus
 per-conversation history that grows turn by turn.  ``make_hotspot_trace``
 is the §5.2 adversarial workload (one long shared prefix in a burst).
+``trace_stats`` and ``estimate_capacity_qps`` size a simulation's
+request rate from a trace and an ``EngineSpec``.
 
 Only the open-loop generators are ported; closed-loop sessions arrive
 with the closed-loop simulator.
@@ -20,6 +22,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..core.radix import RadixKVIndex
 from ..core.types import Request
 
 BLOCK = 64  # tokens per block
@@ -169,3 +172,49 @@ def make_hotspot_trace(qps: float, duration: float, seed: int = 0,
     for i, r in enumerate(reqs):
         r.rid = i
     return reqs
+
+
+# ---------------------------------------------------------------------------
+def infinite_kv_hit_ratio(requests: List[Request]) -> float:
+    """Fig. 5 bottom: KV$ hit rate assuming infinite cache, single pool."""
+    kv = RadixKVIndex(block_size=BLOCK)
+    hit = tot = 0
+    for r in sorted(requests, key=lambda x: x.arrival):
+        hit += kv.match(r.blocks, r.prompt_len)
+        tot += r.prompt_len
+        kv.insert(r.blocks)
+    return hit / max(tot, 1)
+
+
+def trace_stats(requests: List[Request]) -> Dict[str, float]:
+    ins = [r.prompt_len for r in requests]
+    outs = [r.output_len for r in requests]
+    dur = max(r.arrival for r in requests) if requests else 0
+    return {
+        "n": len(requests),
+        "qps": len(requests) / max(dur, 1e-9),
+        "input_mean": float(np.mean(ins)),
+        "input_p95": float(np.percentile(ins, 95)),
+        "output_mean": float(np.mean(outs)),
+        "classes": len({r.class_id for r in requests}),
+        "inf_kv_hit": infinite_kv_hit_ratio(requests),
+    }
+
+
+# ---------------------------------------------------------------------------
+def estimate_capacity_qps(spec, requests: List[Request],
+                          n_instances: int) -> float:
+    """Max sustainable cluster request rate (offline-profiling analogue of
+    the paper's §4.1 trace scaling).  Uses the trace's infinite-KV hit
+    ratio for expected prefill skip and a nominal decode batch."""
+    st = trace_stats(requests)
+    new_tokens = st["input_mean"] * (1.0 - 0.8 * st["inf_kv_hit"])
+    prefill_cost = spec.c_flops * new_tokens + \
+        spec.step_overhead * new_tokens / spec.chunk_tokens
+    avg_bs = 24.0
+    ctx = st["input_mean"] + st["output_mean"] / 2
+    decode_cost = st["output_mean"] * (
+        spec.step_overhead / avg_bs + spec.c_flops
+        + spec.c_attn * ctx * avg_bs / avg_bs / avg_bs)
+    per_req = prefill_cost + decode_cost
+    return n_instances / per_req
