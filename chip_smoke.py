@@ -12,25 +12,31 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``paged_attention.cu``, ``rglru_scan.cu``, ``mlstm_cell.cu``) with
    nvcc for sm_90a (one nvcc each, all at once), print the build time
    and ptxas's registers, static shared memory and spills of every
-   kernel instantiation, and the attention and mLSTM kernels' counts of
+   kernel instantiation, the attention and mLSTM kernels' counts of
    wgmma (HGMMA), mma.sync (HMMA) and TMA load (UTMALDG) instructions
-   from ``cuobjdump -sass``;
+   from ``cuobjdump -sass``, and ``route_score``'s launch plan (warp, or
+   cluster size x threads x instances per thread) at every shape below;
 2. kernel vs plain — the CUDA ``route_score`` kernel against its plain
    PyTorch version on the card, for every kind and ablation, on seeded
-   random and forced-tie states at (k, n) in {(24, 32), (64, 1024),
-   (64, 16384)}; ``sel`` and ``hit`` must be exactly equal;
+   random and forced-tie states at every (k, n) of ``SHAPES``: the
+   simulator's waves (n = 16, and 8 for the PD pool), the regime edges
+   (32 / 33 instances, one and two CTAs around 1024, a partial last CTA
+   at 16461), 65536 instances, beyond what a cluster holds on chip, and
+   waves of 200 requests, beyond the kernels' shared-memory staging;
+   the forced ties sit next to every CTA boundary of the plan, so that
+   they span CTAs; ``sel`` and ``hit`` must be exactly equal;
 3. main path — a 16384-instance cluster, built with
    ``router_from_numpy_state`` from a seeded backlog, routes the hotspot
    trace in waves of 64 through ``Router.route_batch`` (lmetric, vllm);
    a second router from the same state routes with sequential
    ``route()``; decisions and hit tokens must be identical, and the
    kernel's launch count, zeroed just before, must have risen;
-4. timings — the kernel's device time per wave (``torch.profiler``) with
-   cold inputs (rotating over copies of the depth matrix that hold
-   ``COLD_BYTES``) and warm, beside its CUDA-event time per wave; the
-   plain version's time on the same wave, the pipeline's stage times and
-   µs per decision of both routers, each beside the card's name and power
-   limit;
+4. timings — the kernel's device time per wave and per step
+   (``torch.profiler``) with cold inputs (rotating over copies of the
+   depth matrix that hold ``COLD_BYTES``) and warm, beside its CUDA-event
+   time per wave and the byte bound; the plain version's time on the same
+   wave, the pipeline's stage times and µs per decision of both routers,
+   each beside the card's name and power limit;
 5. attention kernels vs plain — ``prefill_attention`` (512-token chunks
    at offsets 0 and 3072, a ragged 300-token chunk, a windowed chunk) and
    ``paged_attention`` (8 sequences, page 16, contexts up to 4096, block
@@ -96,7 +102,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    and the PD run its request-by-request routing.  Prints TTFT/TPOT (in
    simulated time), KV$ hit ratio, SLO attainment, wave sizes, launches,
    host wall and the score stage's µs per wave; one wave's score stage
-   timed alone (``sim_wave_time``: the kernel's device time inside it);
+   timed alone and in parts (``sim_wave_time``: mirror upload, submit,
+   collect; the kernel's device time per wave and per step, cold after
+   an L2 flush and warm);
    and the profile's predicted step times beside Qwen2-7B's measured
    ones (phase 6's walls, and each step alone: wall and device time).
 
@@ -148,7 +156,15 @@ CONFIGS = [("jsq", ()), ("linear", (0.7,)), ("filter", (8,)),
            ("lmetric", ("ptoken", "tokens")),
            ("lmetric", ("one_minus_hit", "bs")),
            ("lmetric", ("one_minus_hit", "tokens")), ("ptoken", ())]
-SHAPES = [(24, 32), (64, 1024), (64, 16384)]
+#: route_score's phase-2 shapes (k, n): the simulator's waves (k = 9 and
+#: its largest, 28, over 16 instances; the PD pool's 8), the edges of the
+#: warp and cluster regimes, the main path's 16384 and 16461 (a partial
+#: last CTA), 65536, past REG_IPT instances per thread of a full cluster,
+#: so that a CTA keeps some instances in global scratch, and k = 200,
+#: whose (k, k+2) aux buffer and, on the warp path, depth matrix exceed
+#: the kernels' shared-memory staging, so that they are read in place
+SHAPES = [(9, 16), (28, 16), (16, 8), (24, 32), (200, 32), (33, 1025),
+          (200, 1025), (64, 1024), (64, 16384), (64, 16461), (64, 65536)]
 KERNELS = ("route_score", "prefill_attention", "paged_attention",
            "rglru_scan", "mlstm_cell")
 
@@ -162,10 +178,21 @@ def card() -> str:
                      if line.strip())
 
 
+def cta_edges(n):
+    """The instances on both sides of every CTA boundary of
+    ``route_score.launch_plan`` at ``n`` (none on the warp path)."""
+    from repro_torch.kernels import route_score as rs
+    c, _, _ = rs.launch_plan(1, n)
+    part = -(-n // c)
+    return sorted({i for b in range(1, c) for i in (b * part - 1, b * part)
+                   if 0 <= i < n})
+
+
 def wave_state(rng, k, n, ties):
     """Seeded indicator columns and wave inputs at (k, n).  ``ties``
-    makes every instance equal except a strided subset that shares the
-    same KV$ depth, so most steps choose among many exact ties."""
+    makes every instance equal except a strided subset and the instances
+    next to each CTA boundary (``cta_edges``), which share the same KV$
+    depth, so most steps choose among many exact ties across CTAs."""
     i64 = np.int64
     plen = (rng.randint(1, 80, k) * BLOCK - rng.randint(0, BLOCK, k))
     if ties:
@@ -173,6 +200,7 @@ def wave_state(rng, k, n, ties):
                 np.full(n, 4096, i64), np.full(n, 90_000, i64))
         depth = np.zeros((k, n), i64)
         depth[:, ::7] = 2
+        depth[:, cta_edges(n)] = 2
         lcp = np.zeros((k, k), i64)
     else:
         cols = (rng.randint(0, 65, n).astype(i64),
@@ -376,21 +404,18 @@ def time_wave(torch, rs, router, wave_reqs, reps=20):
                           tie0)
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
-    # the whole score stage as the pipeline runs it (upload through
-    # pinned memory, launch, copy back, wait), warm
-    stage_s, pin_s, h2d_s = [], [], []
+    # the whole score stage as the pipeline runs it (one pinned upload,
+    # launch, one copy back, wait), warm, and its submit and collect halves
+    stage_s, sub_s, col_s = [], [], []
     for _ in range(10):
         t0 = time.perf_counter()
-        policy.plan_collect(policy.plan_submit((depth, lcp, plen), f))
+        h = policy.plan_submit((depth, lcp, plen), f)
         t1 = time.perf_counter()
-        pinned = torch.from_numpy(depth).pin_memory()
+        policy.plan_collect(h)
         t2 = time.perf_counter()
-        pinned.to(dev, non_blocking=True)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        stage_s.append(t1 - t0)
-        pin_s.append(t2 - t1)
-        h2d_s.append(t3 - t2)
+        stage_s.append(t2 - t0)
+        sub_s.append(t1 - t0)
+        col_s.append(t2 - t1)
     err = int(max(np.abs(sel.cpu().numpy() - want[0]).max(),
                   np.abs(hit.cpu().numpy() - want[1]).max()))
     if err:
@@ -404,12 +429,82 @@ def time_wave(torch, rs, router, wave_reqs, reps=20):
             "device_warm_ms": device_warm_ms,
             "plain_ms": sum(plain_s) / len(plain_s) * 1e3,
             "stage_ms": float(np.median(stage_s)) * 1e3,
-            "pin_ms": float(np.median(pin_s)) * 1e3,
-            "h2d_ms": float(np.median(h2d_s)) * 1e3,
+            "submit_ms": float(np.median(sub_s)) * 1e3,
+            "collect_ms": float(np.median(col_s)) * 1e3,
             "bytes": nbytes, "flops": flops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": err}
+
+
+#: route_score's shapes timed by ``time_route_kernels``: the main path's
+#: wave (lmetric, k = 64 over 16384 instances) and the simulator's waves
+#: (k = 9, its most common large wave, and 28, its largest, over 16)
+ROUTE_TIMED = [(64, N_INST), (9, 16), (28, 16)]
+
+
+def l2_flush(torch):
+    """A closure that overwrites COLD_BYTES of device memory (2x the
+    H100's 50 MB L2), so that the next launch finds its inputs cold."""
+    buf = torch.empty(int(COLD_BYTES), dtype=torch.uint8, device="cuda")
+    return lambda: buf.fill_(1)
+
+
+def time_route_kernels(torch, rs):
+    """``route_score`` of the tree ``rs`` comes from, on seeded lmetric
+    waves (``wave_state``) at ROUTE_TIMED: device time per wave
+    (``torch.profiler``, the route kernel's events only) cold — after an
+    L2 flush — and warm, and the wrapper's wall per wave (``route_wave``
+    with host inputs: upload, launch, copy back, wait; median of 50).
+    Uses only ``route_wave_device``, ``route_wave`` and ``_pack_aux``,
+    which every tree since the first slice has, so that an older tree is
+    measured by this code in the same call."""
+    kind, params = "lmetric", ("ptoken", "bs")
+    flush = l2_flush(torch)
+    out = {}
+    for k, n in ROUTE_TIMED:
+        rng = np.random.RandomState(7 * k + n)
+        cols, depth, lcp, plen, tie0 = wave_state(rng, k, n, False)
+        cols_d = tuple(torch.from_numpy(c).cuda() for c in cols)
+        depth_d = torch.from_numpy(depth).cuda()
+        aux_d = torch.from_numpy(rs._pack_aux(lcp, plen, tie0)).cuda()
+
+        def launch():
+            rs.route_wave_device(kind, params, BLOCK, cols_d, depth_d, aux_d)
+
+        def cold():
+            flush()
+            launch()
+
+        walls = []
+        for i in range(53):
+            t0 = time.perf_counter()
+            rs.route_wave(kind, params, BLOCK, *cols_d, depth, lcp, plen,
+                          tie0)
+            if i >= 3:
+                walls.append(time.perf_counter() - t0)
+        nbytes, ops = wave_bound(kind, params, k, n)
+        out[f"route_score k={k} n={n}"] = {
+            "k": k, "n": n,
+            "cold_ms": _device_ms(torch, [cold], 10, only="route_"),
+            "warm_ms": _device_ms(torch, [launch], 20, only="route_"),
+            "wrapper_ms": float(np.median(walls)) * 1e3,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            ops / FP64_OPS_PER_S) * 1e3}
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_route_timing(gpu, name, t):
+    """Print one ``time_route_kernels`` entry."""
+    k = t["k"]
+    print(f"[{gpu}] {name} (lmetric ptoken x bs): device "
+          f"{t['cold_ms'] * 1e3:.2f} us per wave cold (after an L2 flush), "
+          f"{t['warm_ms'] * 1e3:.2f} warm; per step "
+          f"{t['cold_ms'] * 1e3 / k:.3f} / {t['warm_ms'] * 1e3 / k:.3f} us;"
+          f" route_wave wall {t['wrapper_ms'] * 1e3:.1f} us per wave; "
+          f"bound {t['bound_ms'] * 1e3:.4f} us (bytes)")
 
 
 # ---------------------------------------------------------------------------
@@ -924,20 +1019,25 @@ def _device_events(prof):
                 if e.device_type == DeviceType.CUDA]
 
 
-def _device_ms(torch, fns, rounds, tries=3):
+def _device_ms(torch, fns, rounds, tries=3, only=None):
     """Device time per call: ``rounds`` rounds over ``fns`` (one call each)
     under ``torch.profiler`` after one warm-up round; the time of every
-    kernel and copy the calls ran on the card, summed, over the calls.
+    kernel and copy the calls ran on the card (of those whose names
+    contain ``only``, if given), summed, over the calls.
     Rotating over ``fns`` that read distinct copies of their inputs keeps
     those inputs out of the L2 cache.  Every call runs the same kernels,
     so a trace in which some kernel's count is not a multiple of the
     calls has lost events (seen for SDPA and, after the serving phases,
     for the prefill kernel): it is taken again, up to ``tries`` times;
-    then each kernel's mean time per event is taken once per call, or as
-    many times as its events per call round to, and the loss is
-    printed."""
+    then each kernel's mean time per event in the last trace that saw any
+    is taken once per call, or as many times as its events per call round
+    to, and the loss is printed.  If no trace saw a device event at all
+    (seen once for SDPA), the calls are timed by CUDA events around
+    back-to-back calls instead (``_events_ms``: all of their device work
+    and any host gaps), and that is printed."""
     from torch.profiler import ProfilerActivity, profile
     calls = rounds * len(fns)
+    kept = None
     for _ in range(tries):
         for fn in fns:
             fn()
@@ -952,11 +1052,19 @@ def _device_ms(torch, fns, rounds, tries=3):
         for name, t in _device_events(prof):
             us[name] += t
             count[name] += 1
+        if only is not None:
+            us = collections.Counter({k: v for k, v in us.items()
+                                      if only in k})
         if count and all(n % calls == 0 for n in count.values()):
             return sum(us.values()) / 1e3 / calls
-    if not count:
-        raise AssertionError(f"torch.profiler saw no device event in "
-                             f"{tries} traces of {calls} calls")
+        if count:
+            kept = us, count
+    if kept is None:
+        print(f"torch.profiler saw no device event in {tries} traces of "
+              f"{calls} calls: timed by CUDA events around back-to-back "
+              f"calls instead", file=sys.stderr)
+        return sum(_events_ms(torch, fn, rounds) for fn in fns) / len(fns)
+    us, count = kept
     print(f"torch.profiler lost device events {tries} times ({dict(count)} "
           f"over {calls} calls): each kernel's mean per event taken "
           f"instead", file=sys.stderr)
@@ -1486,7 +1594,7 @@ def report_serving(gpu, sv):
 
 #: the port's kernels by the names of their CUDA functions, as the
 #: profiler reports them (the f32 mlstm_cell runs four)
-PORT_KERNELS = {"route_score": ("route_wave",),
+PORT_KERNELS = {"route_score": ("route_wave", "route_warp", "route_cluster"),
                 "prefill_attention": ("prefill_kernel", "prefill_wgmma"),
                 "paged_attention": ("paged_kernel",),
                 "rglru_scan": ("rglru_kernel",),
@@ -1851,11 +1959,16 @@ def sim_path(device="cuda", n_req=SIM_REQUESTS):
 
 
 def sim_wave_time(torch, rs, router, wave_reqs, reps=50):
-    """One simulator wave's score stage, warm (the mirror was just
-    uploaded, and a wave of 16 instances stays in L2): the kernel's
-    device time per launch (``torch.profiler``) and CUDA-event time per
-    launch, the whole stage as the pipeline runs it (upload, launch, copy
-    back, wait; median of ``reps``), and the plain version's time."""
+    """One simulator wave's score stage: the kernel's device time per
+    launch (``torch.profiler``, the route kernel's events), cold after an
+    L2 flush and warm (a wave of 16 instances stays in L2), its CUDA-event
+    time per launch; the whole stage as the simulator runs it (the mirror
+    re-uploaded, as after every wave's hooks, then submit and collect;
+    median of ``reps``) and its parts timed apart (medians): the mirror's
+    upload (``device_view`` when dirty), ``route_wave_submit`` (pack,
+    one pinned upload, launch, one copy back, event) and
+    ``route_wave_collect`` (wait, copy out); and the plain version's
+    time."""
     policy, f = router.policy, router.factory
     depth, lcp, plen = policy.wave_inputs(copy.deepcopy(wave_reqs), f)
     kind, params = policy.batch_kind, policy._batch_params()
@@ -1865,28 +1978,51 @@ def sim_wave_time(torch, rs, router, wave_reqs, reps=50):
     aux_d = torch.from_numpy(rs._pack_aux(lcp, plen, 0)).to(dev)
 
     def launch():
-        return rs.route_wave_device(kind, params, BLOCK, cols, depth_d,
-                                    aux_d)
+        return rs.route_wave_device(kind, params, f.block_size, cols,
+                                    depth_d, aux_d)
 
-    stage = []
+    flush = l2_flush(torch)
+
+    def cold():
+        flush()
+        launch()
+
+    parts = collections.defaultdict(list)
     for _ in range(reps):
         t0 = time.perf_counter()
-        policy.plan_collect(policy.plan_submit((depth, lcp, plen), f))
-        stage.append(time.perf_counter() - t0)
+        f._dev = None                     # dirty, as after a wave's hooks
+        c = f.device_view()
+        t1 = time.perf_counter()
+        h = rs.route_wave_submit(kind, params, f.block_size, *c, depth,
+                                 lcp, plen, 0)
+        t2 = time.perf_counter()
+        rs.route_wave_collect(h)
+        t3 = time.perf_counter()
+        parts["mirror"].append(t1 - t0)
+        parts["submit"].append(t2 - t1)
+        parts["collect"].append(t3 - t2)
+        parts["stage"].append(t3 - t0)
     plain = []
     for _ in range(5):
         t0 = time.perf_counter()
-        rs.route_wave_ref(kind, params, BLOCK, *cols, depth_d, lcp, plen, 0)
+        rs.route_wave_ref(kind, params, f.block_size, *cols, depth_d, lcp,
+                          plen, 0)
         torch.cuda.synchronize()
         plain.append(time.perf_counter() - t0)
     k, n = depth.shape
     nbytes, ops = wave_bound(kind, params, k, n)
-    return {"k": k, "n": n, "device_ms": _device_ms(torch, [launch], reps),
-            "events_ms": _events_ms(torch, launch, reps),
-            "stage_ms": float(np.median(stage)) * 1e3,
-            "plain_ms": float(np.median(plain)) * 1e3,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                            ops / FP64_OPS_PER_S) * 1e3}
+    out = {"k": k, "n": n, "kind": kind,
+           "device_ms": _device_ms(torch, [launch], reps, only="route_"),
+           "cold_ms": _device_ms(torch, [cold], 20, only="route_"),
+           "events_ms": _events_ms(torch, launch, reps),
+           "plain_ms": float(np.median(plain)) * 1e3,
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                           ops / FP64_OPS_PER_S) * 1e3}
+    for name, v in parts.items():
+        out[f"{name}_ms"] = float(np.median(v)) * 1e3
+    del flush
+    torch.cuda.empty_cache()
+    return out
 
 
 def sim_step_times(torch, spec, served):
@@ -1951,14 +2087,21 @@ def report_sim(gpu, sim, steps=None, wave=None):
               f"| host wall {r['wall']:.2f} s, {score}"
               + (" | == CPU run" if r["same_cpu"] else ""))
     if wave is not None:
+        k = wave["k"]
         print(f"{tag} one wave's score stage (lmetric chatbot router after "
-              f"its run, its largest wave: k={wave['k']}, n={wave['n']}, "
-              f"warm): {wave['stage_ms'] * 1e3:.1f} us (median of 50: "
-              f"mirror and inputs up, launch, results back, wait), of "
-              f"which the kernel {wave['device_ms'] * 1e3:.2f} us device "
-              f"(profiler), {wave['events_ms'] * 1e3:.2f} us per launch in "
-              f"CUDA events; plain version {wave['plain_ms'] * 1e3:.1f} us;"
-              f" bound {wave['bound_ms'] * 1e3:.4f} us")
+              f"its run, its largest wave: k={k}, n={wave['n']}): "
+              f"{wave['stage_ms'] * 1e3:.1f} us (median of 50) = mirror "
+              f"upload {wave['mirror_ms'] * 1e3:.1f} + submit (pack, one "
+              f"pinned upload, launch, one copy back) "
+              f"{wave['submit_ms'] * 1e3:.1f} + collect (wait, copy out) "
+              f"{wave['collect_ms'] * 1e3:.1f} us (medians); the kernel "
+              f"{wave['cold_ms'] * 1e3:.2f} us device cold (after an L2 "
+              f"flush), {wave['device_ms'] * 1e3:.2f} warm (profiler), "
+              f"{wave['cold_ms'] * 1e3 / k:.3f} / "
+              f"{wave['device_ms'] * 1e3 / k:.3f} us per step, "
+              f"{wave['events_ms'] * 1e3:.2f} us per launch in CUDA events; "
+              f"plain version {wave['plain_ms'] * 1e3:.1f} us; bound "
+              f"{wave['bound_ms'] * 1e3:.4f} us")
     served = {"prefill": f"phase 6 median wall of a {CHUNK}-token chunk "
                          f"not ending its prompt",
               "decode": f"phase 6 median wall of a decode step (median "
@@ -1998,6 +2141,14 @@ def main() -> int:
     for line in sass_summary(("prefill_attention", "paged_attention",
                               "mlstm_cell")):
         print(f"sass: {line}")
+    for k, n in SHAPES + [(9, SIM_INSTANCES), (28, PD_PREFILL)]:
+        c, threads, ipt = rs.launch_plan(k, n)
+        print(f"route_score plan at k={k}, n={n}: " + (
+            "one warp (route_warp)" if n <= rs.WARP_MAX else
+            f"route_cluster, cluster of {c} CTA(s) x {threads} threads x "
+            f"{ipt} instance(s) per thread"
+            + (f" ({min(ipt, rs.REG_IPT)} in registers, the rest in "
+               f"global scratch)" if ipt > rs.REG_IPT else "")))
     if "--profile" in sys.argv[1:]:
         for arch in ("qwen2_7b", "recurrentgemma_9b", "xlstm_350m"):
             profile_steps(torch, gpu, arch)
@@ -2036,15 +2187,18 @@ def main() -> int:
     tw = time_wave(torch, rs, lm, copy.deepcopy(trace[n_req - WAVE:n_req]))
     print(f"[{gpu}] route_score kernel: {tw['device_ms'] * 1e3:.1f} us "
           f"device per wave with cold inputs, "
-          f"{tw['device_warm_ms'] * 1e3:.1f} warm (profiler); "
+          f"{tw['device_warm_ms'] * 1e3:.1f} warm (profiler); per step "
+          f"{tw['device_ms'] * 1e3 / tw['k']:.3f} cold, "
+          f"{tw['device_warm_ms'] * 1e3 / tw['k']:.3f} warm; "
           f"{tw['kernel_ms'] * 1e3:.1f} us per wave in CUDA events around "
           f"back-to-back launches ({tw['kind']}{tw['params']}, k={tw['k']}, "
-          f"n={tw['n']}, 1 launch)")
+          f"n={tw['n']}, 1 launch, plan {rs.launch_plan(tw['k'], tw['n'])});"
+          f" byte bound {tw['bound_ms'] * 1e3:.2f} us per wave")
     print(f"[{gpu}] score stage, same wave, warm (median of 10): "
-          f"{tw['stage_ms'] * 1e3:.1f} us (upload, launch, copy back); "
-          f"of which the depth matrix's copy into pinned memory "
-          f"{tw['pin_ms'] * 1e3:.1f} us and its upload "
-          f"{tw['h2d_ms'] * 1e3:.1f} us (median of 10, timed apart)")
+          f"{tw['stage_ms'] * 1e3:.1f} us = submit (pack aux and depth "
+          f"into pinned memory, one upload, launch, one copy back) "
+          f"{tw['submit_ms'] * 1e3:.1f} + collect (wait, copy out) "
+          f"{tw['collect_ms'] * 1e3:.1f} us (medians)")
     print(f"[{gpu}] plain PyTorch version, same wave: "
           f"{tw['plain_ms'] * 1e3:.1f} us")
     print(f"[{gpu}] bound: {tw['bytes']} bytes / {HBM_BYTES_PER_S:.3g} B/s"
@@ -2052,6 +2206,8 @@ def main() -> int:
           f"{tw['bound_ms'] * 1e3:.2f} us ({tw['bound_by']})")
     print(f"[{gpu}] library: no single PyTorch call computes this "
           f"function (library_ms null)")
+    for name, t in time_route_kernels(torch, rs).items():
+        report_route_timing(gpu, name, t)
     for name, r in results.items():
         st = r["router"].stage_stats()
         print(f"[{gpu}] {name}: stages per wave walk {st['walk_us']:.1f} "

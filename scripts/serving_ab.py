@@ -30,7 +30,12 @@ skips them.
 
 ``--kernels`` times each tree's ``rglru_scan`` and ``mlstm_cell`` instead
 (device time per launch, cold and warm, and the wrapper's wall:
-``chip_smoke.time_recurrent_kernels``), and ``--profile ARCH,...`` traces
+``chip_smoke.time_recurrent_kernels``) and its ``route_score`` at the main
+path's wave (k = 64 over 16384 instances) and the simulator's waves (k =
+9 and 28 over 16): device time per wave cold and warm, and
+``route_wave``'s wall per wave (``chip_smoke.time_route_kernels``, which
+calls only ``route_wave_device``, ``route_wave`` and ``_pack_aux``, as
+every tree has them); ``--profile ARCH,...`` traces
 each tree's decode steps and prefill chunks of the named models
 (``chip_smoke.profile_steps``); both run THIS checkout's timing code
 against each tree's own package and kernels, so that an older tree is
@@ -82,7 +87,9 @@ from repro_torch.kernels import _build
 assert os.path.abspath(_build.__file__).startswith(tree), _build.__file__
 _build.build(c.KERNELS)
 if mode == "kernels":
+    from repro_torch.kernels import route_score as rs
     t = c.time_recurrent_kernels(torch)
+    t.update(c.time_route_kernels(torch, rs))
     print("RESULT " + json.dumps(t))
 else:
     gpu = c.card()
@@ -196,9 +203,9 @@ def main():
     ap.add_argument("--no-copies", action="store_true",
                     help="do not time the slot copies")
     ap.add_argument("--kernels", action="store_true",
-                    help="time each tree's rglru_scan and mlstm_cell "
-                         "with this checkout's timing code instead of "
-                         "serving")
+                    help="time each tree's rglru_scan, mlstm_cell and "
+                         "route_score with this checkout's timing code "
+                         "instead of serving")
     ap.add_argument("--profile", metavar="ARCH[,ARCH...]",
                     help="trace each tree's steps of these models with "
                          "this checkout's --profile code instead of "

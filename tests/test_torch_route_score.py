@@ -212,13 +212,37 @@ def test_build_command_and_missing_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+#: (k, n) on the card: the simulator's waves (n = 16, the PD pool's 8)
+#: and every edge of the launch plan — the warp path's 32 (and a wave of
+#: 200, beyond its shared-memory staging), the cluster path at one CTA
+#: (33, 1024), two CTAs (1025), a full cluster with a partial last CTA
+#: (16461), and 65536 instances, beyond what the cluster keeps in
+#: registers
+CARD_SHAPES = [(7, 13), (9, 16), (28, 16), (16, 8), (24, 32), (200, 32),
+               (9, 33), (12, 1024), (33, 1025), (64, 16461), (20, 65536)]
+
+
+def card_wave(k, n, ties):
+    """``wave`` at (k, n); the tie state also makes the instances next to
+    every CTA boundary of the launch plan tie for the deepest hit."""
+    args, tie0 = wave(k * 7919 + n + ties, k, n, ties)
+    if ties:
+        c, _, _ = trs.launch_plan(k, n)
+        part = -(-n // c)
+        edges = [i for b in range(1, c) for i in (b * part - 1, b * part)]
+        args[4][:, edges] = 2
+    return args, tie0
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES,
+                         ids=[f"{k}x{n}" for k, n in CARD_SHAPES])
 @pytest.mark.parametrize("kind,params", CONFIGS, ids=CONFIG_IDS)
-def test_kernel_matches_plain_on_card(kind, params):
+def test_kernel_matches_plain_on_card(kind, params, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    for state in STATES.values():
-        args, tie0 = wave(*state)
+    for ties in (False, True):
+        args, tie0 = card_wave(*shape, ties)
         cols = [torch.from_numpy(a).cuda() for a in args[:4]]
         before = trs.LAUNCHES
         got = trs.route_wave(kind, params, BS, *cols, *args[4:], tie0)
