@@ -106,11 +106,31 @@ Phases (each raises on failure, so any failure exits nonzero):
    collect; the kernel's device time per wave and per step, cold after
    an L2 flush and warm);
    and the profile's predicted step times beside Qwen2-7B's measured
-   ones (phase 6's walls, and each step alone: wall and device time).
+   ones (phase 6's walls, and each step alone: wall and device time);
+14. sharded routing — phase 3's backlog and trace over the sharded
+   prefix index: route_batch under lmetric and vllm on the serial and
+   thread backends at 8 shards and the process backend at 4 and 8
+   (``SHARD_RUNS``; the thread and process backends speculate on the
+   next wave's walk), and sequential ``route()`` under lmetric; decisions
+   and hit tokens must equal phase 3's, with one ``route_score`` launch
+   per wave; prints the walk / score (its submit) / commit µs per wave,
+   each shard's walk, µs per decision of both, the speculation counters
+   and the workers' spawn time.  Then Contract 6 on the card: 8 process
+   shards with ``anti_entropy_k=1`` under a seeded plan of crashes and
+   stalls (decisions equal phase 3's) and under one corrupt bit (the
+   sweep repairs it; every shard verifies after), neither tearing the
+   backend down; phase 13's chatbot lmetric run on a router of 4 thread
+   shards, equal to the flat run with speculative walks consumed; and
+   the mirror's re-upload of dirty ranges in three spellings
+   (``time_mirror``).  None of the process's shared-memory segments and
+   no shard worker may remain.
 
 Each model is freed before the next is loaded.  If the run nears its
-time limit, the Qwen2-7B serving path's depth is cut first (printed);
-the recurrent paths keep their width and depth.
+time limit, the Qwen2-7B serving path's depth is cut first (printed),
+then phase 14's requests; the recurrent paths keep their width and
+depth, and no path keeps fewer instances.  Shard workers are spawned
+processes that re-import this file as their main module, which is why
+it imports ``torch`` only inside ``main()``.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and, instead of
 the phases, traces decode steps and prefill chunks of each served model
@@ -260,16 +280,21 @@ def backlog(trace, n, seed=11):
     return arrays, chains
 
 
-def drive(router, reqs, use_batch):
+def drive(router, reqs, use_batch, hint=False):
     """Route ``reqs`` in waves of WAVE (route_batch, or sequential route()
     with the same per-wave ``now``) under a deterministic partial-drain
-    schedule that keeps every indicator moving.  Returns decisions, hit
-    tokens and the host nanoseconds spent in the routing calls."""
+    schedule that keeps every indicator moving.  With ``hint`` the
+    pipeline's ``next_wave_hint`` names the next wave (the speculation of
+    an asynchronous shard backend).  Returns decisions, hit tokens and
+    the host nanoseconds spent in the routing calls."""
     decisions, hits, route_ns = [], [], 0
     outstanding = collections.deque()
     for i in range(0, len(reqs), WAVE):
         wave = reqs[i:i + WAVE]
         now = wave[0].arrival
+        if hint:
+            nxt = reqs[i + WAVE:i + 2 * WAVE]
+            router.pipeline.next_wave_hint = lambda nxt=nxt: nxt
         t0 = time.perf_counter_ns()
         if use_batch:
             iids = router.route_batch(wave, now)
@@ -328,6 +353,7 @@ def main_path(n, n_req, device, policies=("lmetric", "vllm")):
             raise AssertionError(f"{name}: evictions fired; the wave "
                                  "plan was not exercised as configured")
         out[name] = {"router": rb, "requests": len(reqs),
+                     "decisions": dec_b, "hits": hit_b,
                      "batch_us_per_decision": ns_b / len(reqs) / 1e3,
                      "route_us_per_decision": ns_s / len(reqs) / 1e3,
                      "build_s": tb_b,
@@ -1914,6 +1940,8 @@ def sim_path(device="cuda", n_req=SIM_REQUESTS):
                     raise AssertionError("ClusterSim lmetric chatbot: the "
                                          "card's run != the CPU's")
                 same_cpu = True
+                # phase 14 runs the same trace on a sharded router
+                out["flat_chatbot"] = (trace, multi, _finished(done))
                 # the run's router and its largest wave, for the timing
                 # of one wave's score stage (``sim_wave_time``)
                 at = collections.Counter(r.arrival for r in trace)
@@ -1990,7 +2018,7 @@ def sim_wave_time(torch, rs, router, wave_reqs, reps=50):
     parts = collections.defaultdict(list)
     for _ in range(reps):
         t0 = time.perf_counter()
-        f._dev = None                     # dirty, as after a wave's hooks
+        f.mark_dirty()                    # dirty, as after a wave's hooks
         c = f.device_view()
         t1 = time.perf_counter()
         h = rs.route_wave_submit(kind, params, f.block_size, *c, depth,
@@ -2116,6 +2144,430 @@ def report_sim(gpu, sim, steps=None, wave=None):
               f"layers); the step alone {t['wall']:.3f} ms wall, "
               f"{t['device']:.3f} ms device ({steps['alone_layers']} "
               f"layers)")
+
+
+# ---------------------------------------------------------------------------
+# sharded routing (phase 14): the sharded prefix index on its serial,
+# thread and process shard backends, the pipeline's cross-wave walk
+# speculation, fault injection and anti-entropy
+# ---------------------------------------------------------------------------
+#: phase 14's (walk backend, shards) runs of the main path
+SHARD_RUNS = (("serial", 8), ("thread", 8), ("process", 4), ("process", 8))
+#: the fault runs: 8 process shards, one shard digest-verified per wave,
+#: a seeded plan of crashes and stalls (stalls well under the deadline)
+FAULT_SHARDS, FAULT_SEED = 8, 2027
+FAULT_CRASHES, FAULT_STALLS, FAULT_STALL_S = 2, 2, 0.05
+#: the simulator's sharded router (thread backend, speculating)
+SIM_SHARDS = 4
+#: past this point phase 14 routes SHARD_CUT_REQUESTS requests (never
+#: fewer instances)
+SHARD_CUT_AFTER_S, SHARD_CUT_REQUESTS = 700.0, 512
+#: the mirror's dirty-range sets timed by ``time_mirror`` (8 ranges)
+MIRROR_SETS = {"1 range": (0,), "4 adjacent": (0, 1, 2, 3),
+               "4 apart": (0, 2, 4, 6), "all 8": tuple(range(8))}
+
+
+def _own_segments():
+    """This process's live shared-memory segments: every process backend
+    names its segments ``rps<pid>_...``."""
+    from repro_torch.core.shard_backends import own_segments
+    return own_segments(f"rps{os.getpid():x}_")
+
+
+def _shard_workers():
+    import multiprocessing as mp
+    return [p for p in mp.active_children()
+            if p.name.startswith("prefix-shard")]
+
+
+def sharded_router(name, n, state, device, **kw):
+    """A router over ``n`` instances carrying phase 3's backlog
+    ``state``, built as phase 3 builds its own, with router options."""
+    from repro_torch.core import make_policy, router_from_numpy_state
+    arrays, chains = state
+    return router_from_numpy_state(
+        make_policy(name), n, arrays, chains, tie=0,
+        kv_capacity_tokens=KV_CAPACITY, block_size=BLOCK, device=device,
+        **kw)
+
+
+def _same(name, what, dec, hits, want):
+    if dec != want["decisions"]:
+        j = next(i for i, (a, b) in enumerate(zip(dec, want["decisions"]))
+                 if a != b)
+        raise AssertionError(f"{what} {name}: decisions diverge from phase "
+                             f"3's at request {j}")
+    if hits != want["hits"]:
+        raise AssertionError(f"{what} {name}: hit tokens differ from "
+                             f"phase 3's")
+
+
+def sharded_path(n, n_req, device, trace, want, runs=SHARD_RUNS):
+    """Phase 14a: phase 3's backlog and trace over each (backend,
+    shards) of ``runs``: route_batch under lmetric and vllm with the next
+    wave as the speculation hint (the thread and process backends
+    speculate), and sequential ``route()`` under lmetric; decisions and
+    hit tokens must equal phase 3's (``want``), and each route_batch run
+    launch ``route_score`` once per wave (none on the CPU)."""
+    from repro_torch.kernels import route_score as rs
+    reqs = trace[:n_req]
+    state = backlog(trace, n)
+    waves = -(-n_req // WAVE)
+    out = []
+    for backend, shards in runs:
+        for name in ("lmetric", "vllm"):
+            rec = {"backend": backend, "shards": shards, "policy": name}
+            for use_batch in (True, False) if name == "lmetric" else (True,):
+                t0 = time.perf_counter()
+                router = sharded_router(name, n, state, device,
+                                        n_shards=shards,
+                                        walk_backend=backend)
+                build = time.perf_counter() - t0
+                try:
+                    be = router.factory._agg.backend
+                    rs.LAUNCHES = 0
+                    dec, hits, ns = drive(router, copy.deepcopy(reqs),
+                                          use_batch, hint=use_batch)
+                    launches = rs.LAUNCHES
+                    what = (f"{backend} x {shards} "
+                            f"{'route_batch' if use_batch else 'route()'}")
+                    _same(name, what, dec, hits, want[name])
+                    us = ns / len(reqs) / 1e3
+                    if not use_batch:
+                        rec["route_us"] = us
+                        continue
+                    if router.factory.evictions:
+                        raise AssertionError(f"{what}: evictions fired")
+                    if (router.pipeline.waves != waves or launches
+                            != (waves if device != "cpu" else 0)):
+                        raise AssertionError(
+                            f"{what} {name}: {launches} route_score "
+                            f"launches, {router.pipeline.waves} device "
+                            f"waves, for {waves} waves")
+                    tel = router.walk_telemetry()
+                    rec.update(
+                        batch_us=us, launches=launches, waves=waves,
+                        build_s=build, stages=tel["pipeline"],
+                        max_shard_us=tel["max_shard_us"],
+                        shard_us=[s["mean_walk_us"] for s in tel["shards"]],
+                        uploads=int(router.factory.mirror_uploads.sum()),
+                        spawn_s=getattr(be, "spawn_s", None),
+                        spawn_deadline=getattr(be, "spawn_deadline", None))
+                finally:
+                    router.close()
+                    # a router over N_INST instances is millions of host
+                    # objects in reference cycles: free it before the next
+                    del router
+                    gc.collect()
+            out.append(rec)
+    return out
+
+
+def fault_path(n, n_req, device, trace, want):
+    """Phase 14b (Contract 6): lmetric over FAULT_SHARDS process shards
+    with ``anti_entropy_k=1``, first under a seeded plan of crashes and
+    stalls — decisions and hits must equal phase 3's — then under one
+    ``corrupt`` event, which the sweep must repair (``shard_repairs`` >=
+    1, every ``verify_shard`` true after the run).  Neither run may tear
+    the backend down or rebuild the index, and every event must fire."""
+    from repro_torch.core.faults import FaultEvent, FaultInjector, FaultPlan
+    from repro_torch.kernels import route_score as rs
+    reqs = trace[:n_req]
+    state = backlog(trace, n)
+    waves = -(-n_req // WAVE)
+    plans = {
+        "crashes and stalls": FaultPlan.seeded(
+            FAULT_SEED, FAULT_SHARDS, max(waves - 2, 1),
+            crashes=FAULT_CRASHES, stalls=FAULT_STALLS,
+            stall_s=FAULT_STALL_S),
+        "one corrupt bit": FaultPlan(events=(FaultEvent(
+            "corrupt", shard=3, at=min(2, waves - 1), seed=FAULT_SEED),))}
+    out = []
+    for what, plan in plans.items():
+        router = sharded_router("lmetric", n, state, device,
+                                n_shards=FAULT_SHARDS,
+                                walk_backend="process", anti_entropy_k=1)
+        try:
+            f = router.factory
+            agg0 = f._agg
+            be = agg0.backend
+            inj = FaultInjector(plan)
+            f.attach_faults(inj)
+            rs.LAUNCHES = 0
+            t0 = time.perf_counter()
+            dec, hits, ns = drive(router, copy.deepcopy(reqs), True,
+                                  hint=True)
+            wall = time.perf_counter() - t0
+            launches = rs.LAUNCHES
+            if (f._agg is not agg0 or be._closed or f.degraded_rebuilds
+                    or inj.pending):
+                raise AssertionError(
+                    f"fault run ({what}): index replaced or backend torn "
+                    f"down ({f.degraded_rebuilds} rebuilds), or "
+                    f"{inj.pending} events never fired")
+            if launches != (waves if device != "cpu" else 0):
+                raise AssertionError(f"fault run ({what}): {launches} "
+                                     f"launches for {waves} waves")
+            same = dec == want["lmetric"]["decisions"] and \
+                hits == want["lmetric"]["hits"]
+            if plan is plans["crashes and stalls"]:
+                _same("lmetric", f"fault run ({what})", dec, hits,
+                      want["lmetric"])
+                if be.heals < FAULT_CRASHES:
+                    raise AssertionError(f"{be.heals} heals for "
+                                         f"{FAULT_CRASHES} crashes")
+            else:
+                ok = [f.verify_shard(s) for s in range(FAULT_SHARDS)]
+                if f.shard_repairs < 1 or not all(ok):
+                    raise AssertionError(
+                        f"fault run ({what}): {f.shard_repairs} repairs, "
+                        f"verify_shard {ok}")
+            st = router.stage_stats()
+            out.append({
+                "what": what, "fired": inj.stats(), "same": same,
+                "heals": be.heals, "timeouts": be.timeouts,
+                "escalations": be.escalations,
+                "heal_ms": [t / 1e6 for t in be.repair_ns],
+                "repairs": f.shard_repairs,
+                "mismatches": f.verify_mismatches,
+                "repair_ms": [t / 1e6 for t in f.repair_ns],
+                "batch_us": ns / len(reqs) / 1e3, "wall": wall,
+                "stages": st, "launches": launches})
+        finally:
+            router.close()
+            del router
+            gc.collect()
+    return out
+
+
+def sim_speculation(device, sim):
+    """Phase 14c: phase 13's chatbot trace under lmetric on a
+    ``ClusterSim`` whose router walks SIM_SHARDS shards on the thread
+    backend (speculating on the simulator's heap peek): the finished
+    tuples must equal phase 13's flat run, with speculative walks
+    consumed and one launch per wave of two or more."""
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core import Router, make_policy
+    from repro_torch.kernels import route_score as rs
+    trace, multi, want = sim["flat_chatbot"]
+    rs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with Router(make_policy("lmetric"), SIM_INSTANCES,
+                kv_capacity_tokens=sim["kv"], n_shards=SIM_SHARDS,
+                walk_backend="thread", device=device) as router:
+        cs = ClusterSim(router, sim["spec"])
+        # how often the reference's hint, the heap-top peek, would have
+        # named a wave of two or more at the same moments
+        peeks = []
+
+        def hint():
+            w = cs._peek_next_wave()
+            peeks.append(bool(w and len(w) > 1))
+            return cs._next_arrival_wave()
+        router.pipeline.next_wave_hint = hint
+        done = cs.run(copy.deepcopy(trace))
+        st = router.stage_stats()
+    wall = time.perf_counter() - t0
+    launches = rs.LAUNCHES
+    if _finished(done) != want:
+        raise AssertionError("ClusterSim on a sharded speculating router "
+                             "!= phase 13's flat run")
+    if st["waves"] != multi or launches != (multi if device != "cpu"
+                                            else 0):
+        raise AssertionError(f"sharded ClusterSim: {st['waves']} waves, "
+                             f"{launches} launches for {multi} waves")
+    if not st["prefetch_hits"]:
+        raise AssertionError("sharded ClusterSim: no speculative walk was "
+                             "consumed")
+    return {"stages": st, "wall": wall, "launches": launches,
+            "waves": multi, "requests": len(done), "hints": len(peeks),
+            "peek_waves": sum(peeks)}
+
+
+def time_mirror(torch, state, reps=30):
+    """The device mirror's re-upload of dirty ranges at N_INST instances
+    in 8 ranges (MIRROR_SETS) on the same columns, each checked against
+    the numpy source: the factory's ``device_view`` (dirty flags, run
+    coalescing and its event included), and three spellings of the
+    copies alone — the factory's (a run packed contiguously in pinned
+    memory, one upload, one device-to-device copy into the mirror's
+    rows; one upload for the whole mirror), one copy per row of a run
+    from a pinned ``(4, n)`` staging buffer, and one strided copy per
+    run from it.  Median host µs of the call and µs until the copies are
+    done."""
+    from repro_torch.core import IndicatorFactory
+    f = IndicatorFactory(N_INST, n_shards=8, exact_only=True,
+                         device="cuda")
+    arrays, _ = state
+    for name in ("r_bs", "q_bs", "queued_prefill_tokens", "total_tokens"):
+        getattr(f, name)[:] = arrays[name]
+    f.mark_dirty()
+    f.device_view()
+    cols = np.stack((f.r_bs, f.q_bs, f.queued_prefill_tokens,
+                     f.total_tokens))
+    dev = f.device
+    n = f.n
+    stage = torch.empty((4, n), dtype=torch.int64, pin_memory=True)
+    packed = torch.empty(4 * n, dtype=torch.int64, pin_memory=True)
+    tmp = torch.empty(4 * n, dtype=torch.int64, device=dev)
+    mirror = torch.zeros((4, n), dtype=torch.int64, device=dev)
+    host, phost = stage.numpy(), packed.numpy()
+    out = {}
+    for label, shards in MIRROR_SETS.items():
+        runs = []
+        for s in shards:
+            lo, hi = f._mirror_bounds[s]
+            if runs and runs[-1][1] == lo:
+                runs[-1][1] = hi
+            else:
+                runs.append([lo, hi])
+
+        def factory():
+            for s in shards:
+                f.mark_dirty(f._mirror_bounds[s][0])
+            f.device_view()
+
+        def packed_runs():
+            for lo, hi in runs:
+                w = hi - lo
+                phost[4 * lo:4 * hi].reshape(4, w)[...] = cols[:, lo:hi]
+                if w == n:
+                    mirror.view(-1).copy_(packed, non_blocking=True)
+                    continue
+                tmp[4 * lo:4 * hi].copy_(packed[4 * lo:4 * hi],
+                                         non_blocking=True)
+                mirror[:, lo:hi].copy_(tmp[4 * lo:4 * hi].view(4, w))
+
+        def rows():
+            for lo, hi in runs:
+                host[:, lo:hi] = cols[:, lo:hi]
+                for r in range(4):
+                    mirror[r, lo:hi].copy_(stage[r, lo:hi],
+                                           non_blocking=True)
+
+        def strided():
+            for lo, hi in runs:
+                host[:, lo:hi] = cols[:, lo:hi]
+                mirror[:, lo:hi].copy_(stage[:, lo:hi], non_blocking=True)
+
+        res = {}
+        for way, fn in (("factory", factory), ("packed", packed_runs),
+                        ("rows", rows), ("strided", strided)):
+            got = f._mirror if way == "factory" else mirror
+            got.zero_()
+            fn()
+            torch.cuda.synchronize()
+            for lo, hi in runs:
+                if not np.array_equal(got[:, lo:hi].cpu().numpy(),
+                                      cols[:, lo:hi]):
+                    raise AssertionError(f"mirror upload ({way}, {label})"
+                                         f" != the numpy columns")
+            host_s, done_s = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host_s.append(t1 - t0)
+                done_s.append(time.perf_counter() - t0)
+            res[way] = (float(np.median(host_s)) * 1e6,
+                        float(np.median(done_s)) * 1e6)
+        out[label] = {"runs": len(runs), **res}
+    return out
+
+
+def shard_phase(device, n, n_req, trace, want, sim=None):
+    """Phase 14: (a) ``sharded_path``, (b) ``fault_path``, (c)
+    ``sim_speculation`` when phase 13's ``sim`` is given, (d) none of this
+    process's shared-memory segments and no shard worker left.  ``want``
+    holds phase 3's decisions and hit tokens per policy."""
+    out = {"sharded": sharded_path(n, n_req, device, trace, want),
+           "faults": fault_path(n, n_req, device, trace, want)}
+    if sim is not None:
+        out["sim"] = sim_speculation(device, sim)
+    segs, workers = _own_segments(), _shard_workers()
+    if segs or workers:
+        raise AssertionError(f"phase 14 left segments {segs} and shard "
+                             f"workers {workers}")
+    out["launches"] = (sum(r.get("launches", 0) for r in out["sharded"])
+                       + sum(r["launches"] for r in out["faults"])
+                       + (out["sim"]["launches"] if sim is not None else 0))
+    return out
+
+
+def report_shards(gpu, ph, mirror=None):
+    """Print phase 14's numbers."""
+    tag = f"[{gpu}] sharded routing:"
+    for r in ph["sharded"]:
+        st = r["stages"]
+        spawn = ("" if r["spawn_s"] is None else
+                 f" | workers spawned in {r['spawn_s']:.2f} s (spawn "
+                 f"deadline {r['spawn_deadline']:.1f} s)")
+        seq = (f", sequential route() {r['route_us']:.2f} us/decision"
+               if "route_us" in r else "")
+        print(f"{tag} {r['backend']} x {r['shards']} shards, {r['policy']}:"
+              f" route_batch {r['batch_us']:.2f} us/decision{seq} | per "
+              f"wave: walk {st['walk_us']:.1f} us, score "
+              f"{st['score_us']:.1f} us (submit {st['submit_us']:.1f}), "
+              f"commit {st['commit_us']:.1f} us over {st['waves']} waves | "
+              f"max_shard_us {r['max_shard_us']:.2f}, per shard "
+              f"{[round(x, 2) for x in r['shard_us']]} us per walk | "
+              f"prefetches {st['prefetches']}, prefetch_hits "
+              f"{st['prefetch_hits']}, overlap_fraction "
+              f"{st['overlap_fraction']:.3f} | route_score launches "
+              f"{r['launches']} for {r['waves']} waves | mirror range "
+              f"uploads {r['uploads']} | router built in "
+              f"{r['build_s']:.1f} s{spawn} | == phase 3")
+    for r in ph["faults"]:
+        st = r["stages"]
+        print(f"{tag} faults ({r['what']}), lmetric, process x "
+              f"{FAULT_SHARDS}, anti_entropy_k=1: fired {r['fired']} | "
+              f"heals {r['heals']} (backend heal and repair times "
+              f"{', '.join(f'{t:.0f}' for t in r['heal_ms'])} ms), timeouts {r['timeouts']}, escalations "
+              f"{r['escalations']} | sweep: {r['mismatches']} mismatches, "
+              f"{r['repairs']} repairs ({', '.join(f'{t:.0f}' for t in r['repair_ms'])}"
+              f" ms) | route_batch {r['batch_us']:.2f} us/decision, walk "
+              f"{st['walk_us']:.1f} us/wave, prefetch_hits "
+              f"{st['prefetch_hits']} of {st['prefetches']} | "
+              f"{r['wall']:.1f} s | decisions == phase 3: {r['same']} | "
+              f"no teardown, no index rebuild")
+    if "sim" in ph:
+        s = ph["sim"]
+        st = s["stages"]
+        print(f"{tag} ClusterSim chatbot lmetric on {SIM_SHARDS} thread "
+              f"shards: {s['requests']} finished == phase 13's flat run; "
+              f"prefetches {st['prefetches']}, prefetch_hits "
+              f"{st['prefetch_hits']}, overlap_fraction "
+              f"{st['overlap_fraction']:.3f} (the heap-top peek would have "
+              f"named {s['peek_waves']} waves of >= 2 at the "
+              f"{s['hints']} hints); route_score launches "
+              f"{s['launches']} for {s['waves']} waves; per wave walk "
+              f"{st['walk_us']:.1f} us, score {st['score_us']:.1f} us; "
+              f"host wall {s['wall']:.2f} s")
+    for label, m in (mirror or {}).items():
+        print(f"{tag} mirror re-upload at {N_INST} instances, {label} "
+              f"dirty ({m['runs']} run(s)), median host us / us until "
+              f"done: device_view {m['factory'][0]:.1f} / "
+              f"{m['factory'][1]:.1f}; its copies alone (a packed upload "
+              f"and a device copy per run, one upload for the whole "
+              f"mirror) {m['packed'][0]:.1f} / {m['packed'][1]:.1f}; one "
+              f"copy per row of a run {m['rows'][0]:.1f} / "
+              f"{m['rows'][1]:.1f}; one strided copy per run "
+              f"{m['strided'][0]:.1f} / {m['strided'][1]:.1f}")
+    print(f"{tag} no segment of this process left in /dev/shm, no "
+          f"prefix-shard worker alive")
+
+
+def rehearse_shards(n=256, n_req=256):
+    """Phase 14 on the CPU at a small size (plain versions, no launches):
+    phase 3's flat runs, then (a), (b) and (d)."""
+    results, trace = main_path(n, n_req, "cpu")
+    want = {k: {"decisions": v["decisions"], "hits": v["hits"]}
+            for k, v in results.items()}
+    ph = shard_phase("cpu", n, n_req, trace, want)
+    report_shards("cpu rehearsal", ph)
+    return ph
 
 
 def main() -> int:
@@ -2272,7 +2724,9 @@ def main() -> int:
     # ---- phase 13: the cluster simulation ----------------------------
     # free the main path's 16384-instance routers (millions of host
     # objects) first, so that the simulator's host walls do not pay for
-    # collecting them
+    # collecting them; phase 14 keeps their decisions and hit tokens
+    want = {k: {"decisions": v["decisions"], "hits": v["hits"]}
+            for k, v in results.items()}
     del results, lm, r
     gc.collect()
     t0 = time.perf_counter()
@@ -2282,6 +2736,20 @@ def main() -> int:
     report_sim(gpu, sim, steps, wave)
     print(f"[{gpu}] simulation: {sim['wall']:.1f} s for the runs, "
           f"{time.perf_counter() - t0:.1f} s with the step timing")
+
+    # ---- phase 14: sharded routing -----------------------------------
+    n_req14 = n_req
+    if time.perf_counter() - t_start > SHARD_CUT_AFTER_S:
+        n_req14 = min(n_req, SHARD_CUT_REQUESTS)
+        print(f"sharded routing: cut from {n_req} to {n_req14} requests "
+              f"to stay within the time limit (instances stay {N_INST})")
+    t0 = time.perf_counter()
+    want = {k: {"decisions": v["decisions"][:n_req14],
+                "hits": v["hits"][:n_req14]} for k, v in want.items()}
+    shards = shard_phase("cuda", N_INST, n_req14, trace, want, sim)
+    mirror = time_mirror(torch, backlog(trace, N_INST))
+    report_shards(gpu, shards, mirror)
+    print(f"[{gpu}] sharded routing: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
@@ -2290,7 +2758,7 @@ def main() -> int:
         "name": "route_score", "route": "cuda",
         "source": "src/repro_torch/csrc/route_score.cu",
         "replaces": "src/repro/kernels/route_score.py:218",
-        "launches": launches + sim["launches"],
+        "launches": launches + sim["launches"] + shards["launches"],
         "max_abs_err": max(worst, tw["max_abs_err"]),
         "ms": tw["device_ms"], "plain_ms": tw["plain_ms"],
         "bound_ms": tw["bound_ms"], "bound_by": tw["bound_by"],

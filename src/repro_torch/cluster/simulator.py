@@ -35,14 +35,9 @@ from typing import Dict, List, Optional
 from ..core.latency_model import EngineSpec, LatencyModel
 from ..core.router import Router
 from ..core.types import Request
+from ..core.types import not_ported as _not_ported
 
 WINDOW = 10.0  # seconds, for imbalance/batch telemetry
-
-
-def _not_ported(what: str, item: int, needs: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: it needs {needs} "
-        f"(ROADMAP Queue A item {item})")
 
 
 class _SimInstance:
@@ -127,19 +122,31 @@ class ClusterSim:
         self.instances = [_SimInstance(i, spec, self.model)
                           for i in range(len(router.factory))]
         self._events: List = []
+        # the arrival events still in _events, in the same (t, seq) order
+        self._arrivals: List = []
         self._seq = itertools.count()
         self.now = 0.0
         self.finished: List[Request] = []
+        # wave pipelining: the router's pipeline asks for the next
+        # arrival wave, so that an asynchronous walk backend starts wave
+        # k+1's walk while wave k's score stage runs (see
+        # repro_torch.core.pipeline)
+        router.pipeline.next_wave_hint = self._next_arrival_wave
 
     # ------------------------------------------------------------------
     def _push(self, t: float, kind: str, payload):
-        heapq.heappush(self._events, (t, next(self._seq), kind, payload))
+        e = (t, next(self._seq), kind, payload)
+        heapq.heappush(self._events, e)
+        if kind == "arrival":
+            heapq.heappush(self._arrivals, e)
 
     def run(self, requests: List[Request], until: Optional[float] = None):
         for req in requests:
             self._push(req.arrival, "arrival", req)
         while self._events:
             t, _, kind, payload = heapq.heappop(self._events)
+            if kind == "arrival":
+                heapq.heappop(self._arrivals)
             if until is not None and t > until:
                 break
             self.now = t
@@ -153,6 +160,7 @@ class ClusterSim:
                 while (self._events and self._events[0][0] == t
                        and self._events[0][2] == "arrival"):
                     wave.append(heapq.heappop(self._events)[3])
+                    heapq.heappop(self._arrivals)
                 self._on_arrivals(wave)
             else:
                 self._on_step_end(payload)
@@ -180,10 +188,11 @@ class ClusterSim:
         next event isn't an arrival.  Pops the consecutive same-time
         arrival run off the heap top and pushes it straight back —
         ``(t, seq)`` keys are unique, so the pop order the run loop
-        observes is unchanged.  The reference hands it to its pipeline
-        as the cross-wave speculation hint; the port's pipeline has no
-        speculation yet (ROADMAP Queue A item 4), so nothing reads it
-        during a run."""
+        observes is unchanged.  The reference hands it to its pipeline as
+        the cross-wave speculation hint; while engines are busy a step
+        end is almost always at the heap top, so it is almost always
+        None, and the port's hint is :meth:`_next_arrival_wave`
+        instead."""
         ev = self._events
         if not ev or ev[0][2] != "arrival":
             return None
@@ -196,6 +205,26 @@ class ClusterSim:
         for e in popped:
             heapq.heappush(ev, e)
         return wave
+
+    def _next_arrival_wave(self) -> Optional[List[Request]]:
+        """The arrival wave ``run`` will coalesce next, past any engine
+        step ends before it: the same-time run at the top of the arrival
+        heap, popped and pushed straight back.  The router's pipeline
+        reads it as its cross-wave speculation hint (``next_wave_hint``)
+        and walks that wave early on an asynchronous shard backend; step
+        ends touch indicators but never the prefix index, so the walk
+        stays exact, and the pipeline uses it only for the very wave it
+        named."""
+        arr = self._arrivals
+        if not arr:
+            return None
+        t = arr[0][0]
+        popped = []
+        while arr and arr[0][0] == t:
+            popped.append(heapq.heappop(arr))
+        for e in popped:
+            heapq.heappush(arr, e)
+        return [e[3] for e in popped]
 
     # ------------------------------------------------------------------
     def _on_arrivals(self, reqs: List[Request]):

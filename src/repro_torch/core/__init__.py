@@ -1,20 +1,39 @@
-from .types import Request
-from .radix import RadixKVIndex, tokens_to_blocks
-from .indicators import (AggregatedPrefixIndex, IndicatorFactory,
-                         InstanceState, resolve_device)
-from .pipeline import RoutingPipeline
-from .latency_model import EngineSpec, LatencyModel, spec_from_config
-from .policies import (FilterKVPolicy, JSQPolicy, LinearKVPolicy,
-                       LMetricPolicy, Policy, make_policy)
-from .router import Router, commit_wave_plan
-from .state import router_from_numpy_state
+"""The port's routing core.  Names resolve lazily (PEP 562): importing a
+numpy-only module such as ``repro_torch.core.shard_backends`` — which a
+spawned shard worker does — loads neither ``torch`` nor the modules that
+import it."""
+import importlib
 
-__all__ = [
-    "Request", "RadixKVIndex", "tokens_to_blocks",
-    "AggregatedPrefixIndex", "IndicatorFactory", "InstanceState",
-    "resolve_device", "RoutingPipeline",
-    "EngineSpec", "LatencyModel", "spec_from_config",
-    "Policy", "JSQPolicy", "LinearKVPolicy", "FilterKVPolicy",
-    "LMetricPolicy", "make_policy",
-    "Router", "commit_wave_plan", "router_from_numpy_state",
-]
+_EXPORTS = {
+    "types": ("Request",),
+    "radix": ("RadixKVIndex", "tokens_to_blocks"),
+    "prefix_index": ("AggregatedPrefixIndex", "shard_bounds"),
+    "faults": ("FaultEvent", "FaultInjector", "FaultPlan", "ShardError"),
+    "shard_backends": ("ProcessBackend", "SerialBackend", "ShardBackend",
+                       "ThreadBackend", "make_backend"),
+    "sharded_index": ("ShardedPrefixIndex",),
+    "indicators": ("IndicatorFactory", "InstanceState", "resolve_device"),
+    "pipeline": ("RoutingPipeline",),
+    "latency_model": ("EngineSpec", "LatencyModel", "spec_from_config"),
+    "policies": ("FilterKVPolicy", "JSQPolicy", "LinearKVPolicy",
+                 "LMetricPolicy", "Policy", "make_policy"),
+    "router": ("Router", "commit_wave_plan"),
+    "state": ("router_from_numpy_state",),
+}
+_WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
+
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name):
+    mod = _WHERE.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    value = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -11,35 +11,58 @@ place by the instance hooks:
   ``factory.hits_for(req)``           per-instance KV$ hit tokens
 
 The host half is numpy, exactly as in the reference: the flat bitset
-``AggregatedPrefixIndex`` (one walk down a prompt yields every
-instance's hit depth), the LCP helpers the wave path uses, and the
-per-instance ``RadixKVIndex`` trees that own LRU clocks and eviction and
-keep the aggregate coherent through their callbacks.  ``exact_only``
+``AggregatedPrefixIndex`` and the LCP helpers the wave path uses (in
+the torch-free ``repro_torch.core.prefix_index``, re-exported here), and
+the per-instance ``RadixKVIndex`` trees that own LRU clocks and eviction
+and keep the aggregate coherent through their callbacks.  ``exact_only``
 factories fall back to per-instance walks, which the aggregate cannot
 model.
+
+Past a few thousand instances the factory shards the aggregate by
+instance-id range: ``n_shards > 1`` (or any ``walk_backend``) builds a
+``repro_torch.core.sharded_index.ShardedPrefixIndex`` whose per-shard
+depth blocks concatenate into the same full-width matrices, bit-identical
+to the flat index, walked by a serial, thread or process shard backend.
+The factory is the canonical chains provider of that index: a failed
+walk or mutation is healed by rebuilding one shard (or, failing that,
+the whole index) from the per-instance trees (degraded mode), and
+``anti_entropy_step`` digest-verifies shards against those trees and
+repairs any that drifted.
 
 Device mirror & dirty-flag sync contract
 ----------------------------------------
 ``device_view()`` returns ``(r_bs, q_bs, queued_prefill_tokens,
-total_tokens)`` as int64 torch tensors on ``factory.device``.  On a CUDA
-device the four columns go up through one pinned ``(4, n)`` staging
-buffer with a non-blocking copy on the current stream, and only when a
-hook has marked the factory dirty since the last call; otherwise the
-cached tensors are returned.  Every built-in mutation path stays an
-in-place numpy write followed by ``mark_dirty``; code that writes the
-arrays directly must call ``mark_dirty()`` itself.  Device code never
-writes indicators back: decisions return to the host and are committed
-through the same hooks, so the numpy arrays remain the single source of
-truth.
+total_tokens)`` as int64 torch tensors on ``factory.device``.  The
+mirror is partitioned by the same ``shard_bounds`` ranges as the index,
+one dirty flag per range: ``mark_dirty(iid)`` flips only the range that
+owns ``iid``, a bare ``mark_dirty()`` flips all, and ``device_view``
+re-uploads only the dirty ranges (adjacent ones coalesced).  On a CUDA
+device the four columns live in one persistent ``(4, n)`` tensor.  A
+dirty run ``[lo, hi)`` is packed as a ``(4, hi - lo)`` block into words
+``[4 lo, 4 hi)`` of a pinned staging buffer and goes up in one
+non-blocking copy on the current stream: straight into the mirror when
+the run is the whole of it, else into the same words of a device buffer
+and from there, on the device, into the mirror's four column ranges
+(measured faster than one copy per row, and than one strided copy).  An
+event recorded after the last copy is waited on before the staging
+buffer is rewritten.  The CUDA mirror is updated in place (kernels
+launched earlier on the stream read it before the copies); on the CPU
+each refresh returns a new tensor.
+Every built-in mutation path stays an in-place numpy write followed by
+``mark_dirty``; code that writes the arrays directly must call
+``mark_dirty()`` itself.  Device code never writes indicators back:
+decisions return to the host and are committed through the same hooks,
+so the numpy arrays remain the single source of truth.
 
-``evictions`` counts per-instance KV$ leaf evictions and full clears.
-The wave plan models intra-wave cache growth exactly but not a mid-wave
-eviction; the router watches this counter and falls back to sequential
-host routing the moment it moves.
+``evictions`` counts per-instance KV$ leaf evictions and full clears
+(and index repairs).  The wave plan models intra-wave cache growth
+exactly but not a mid-wave eviction; the router watches this counter
+and falls back to sequential host routing the moment it moves, and the
+pipeline's speculative walks are voided by it.
 
-Left out of this port so far: the sharded index and its shard backends,
-fault injection and anti-entropy digests, heterogeneous-fleet columns
-and the Preble routed-window rings.
+Left out of this port so far: heterogeneous-fleet columns (ROADMAP
+Queue A item 6), instance failure and the Preble routed-window rings
+(item 7); their entry points raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,13 +72,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .prefix_index import (  # noqa: F401  (re-exported names)
+    AggregatedPrefixIndex, _lcp_block, _pairwise_lcp, _sorted_lcp,
+    digest_from_chains, shard_bounds, shard_owner)
 from .radix import RadixKVIndex
-from .types import Request
-
-_WORD_BITS = 64
-#: bitset word dtype pinned to little-endian so the ``view(np.uint8)``
-#: decode in the scatters is platform-independent
-_WORD = np.dtype("<u8")
+from .types import Request, not_ported
 
 
 def resolve_device(device) -> torch.device:
@@ -75,387 +96,6 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
-
-
-class AggregatedPrefixIndex:
-    """Flat, array-backed cross-instance prefix index.
-
-    A node is an integer row id; child lookup is one hash probe in the
-    node's ``block_key -> child_row_id`` dict and freed rows are
-    recycled through a free list.  Per-node instance membership is one
-    row of the ``(capacity, ceil(n/64))`` uint64 matrix ``_masks``: bit
-    ``i`` of row ``nid`` (little-endian within and across words) is set
-    iff instance ``i``'s own radix tree holds the chain ending at
-    ``nid``.
-
-    The walk-reuse invariant: every per-instance chain is prefix-closed,
-    so a child's mask is a subset of its parent's.  The live set at
-    depth ``d`` of a walk is therefore the mask of the node at depth
-    ``d``, narrowing shows as a change of the cached popcount, and a
-    walk's state after ``d`` blocks depends only on those blocks — which
-    lets ``match_depths_many`` walk a wave's chains in lexicographic
-    order and resume each from its predecessor's shared-prefix frontier.
-    Mutate only through the ``RadixKVIndex`` callback protocol.
-    """
-
-    __slots__ = ("n", "words", "_masks", "_pop", "_parent", "_live",
-                 "_key", "_kids", "_free", "_top")
-
-    def __init__(self, n_instances: int, capacity: int = 256):
-        self.n = n_instances
-        self.words = (n_instances + _WORD_BITS - 1) // _WORD_BITS
-        full = np.zeros(self.words, dtype=_WORD)
-        nfull, rem = divmod(n_instances, _WORD_BITS)
-        full[:nfull] = np.uint64(0xFFFFFFFFFFFFFFFF)
-        if rem:
-            full[nfull] = np.uint64((1 << rem) - 1)
-        cap = max(int(capacity), 2)
-        # masks are the one vectorized structure; the scalar per-node
-        # metadata lives in plain lists (a list index is cheaper than a
-        # numpy scalar read on the walk's hot path)
-        self._masks = np.zeros((cap, self.words), dtype=_WORD)
-        self._pop: List[int] = [0] * cap
-        self._parent: List[int] = [-1] * cap
-        self._live: List[bool] = [False] * cap
-        self._key: List = [None] * cap
-        # per-node child dict (block key -> child row id); None = freed
-        self._kids: List[Optional[Dict[int, int]]] = [None] * cap
-        self._free: List[int] = []
-        # row 0 is the root, pinned to the full instance set so the
-        # popcount narrowing check works from the very first block
-        self._top = 1
-        self._masks[0] = full
-        self._pop[0] = n_instances
-        self._live[0] = True
-        self._kids[0] = {}
-
-    # ---- storage ------------------------------------------------------
-    def _grow(self):
-        cap = self._masks.shape[0]
-        masks = np.zeros((2 * cap, self.words), dtype=_WORD)
-        masks[:cap] = self._masks
-        self._masks = masks
-        self._pop.extend([0] * cap)
-        self._parent.extend([-1] * cap)
-        self._live.extend([False] * cap)
-        self._key.extend([None] * cap)
-        self._kids.extend([None] * cap)
-
-    def _alloc(self, parent: int, key) -> int:
-        if self._free:
-            nid = self._free.pop()
-        else:
-            nid = self._top
-            if nid == self._masks.shape[0]:
-                self._grow()
-            self._top += 1
-        self._masks[nid] = 0
-        self._pop[nid] = 0
-        self._parent[nid] = parent
-        self._live[nid] = True
-        self._key[nid] = key
-        self._kids[nid] = {}
-        return nid
-
-    def _free_node(self, nid: int) -> int:
-        """Recycle a dead node; returns its parent id."""
-        parent = self._parent[nid]
-        del self._kids[parent][self._key[nid]]
-        self._live[nid] = False
-        self._parent[nid] = -1
-        self._key[nid] = None
-        self._kids[nid] = None
-        self._free.append(nid)
-        return parent
-
-    # ---- mutation (RadixKVIndex callback protocol) --------------------
-    def add(self, iid: int, blocks: Sequence[int]):
-        """Mark the whole chain as present on instance ``iid``."""
-        if not blocks:
-            return
-        kids = self._kids
-        cur_kids = kids[0]
-        node = 0
-        path: List[int] = []
-        append = path.append
-        for b in blocks:
-            child = cur_kids.get(b)
-            if child is None:
-                child = self._alloc(node, b)
-                cur_kids[b] = child
-            append(child)
-            node = child
-            cur_kids = kids[child]
-        w = iid >> 6
-        mbit = 1 << (iid & 63)
-        mitem = self._masks.item       # bound after _alloc may have grown
-        # subset invariant: the nodes already holding the bit form a
-        # prefix of the path — binary-search the boundary
-        lo, hi = 0, len(path)
-        while lo < hi:
-            mid = (lo + hi) // 2
-            if mitem(path[mid], w) & mbit:
-                lo = mid + 1
-            else:
-                hi = mid
-        if lo < len(path):
-            fresh = path[lo:]
-            ids = np.fromiter(fresh, np.int64, len(fresh))
-            self._masks[ids, w] |= np.uint64(mbit)
-            pop = self._pop
-            for nid in fresh:
-                pop[nid] += 1
-
-    def remove_leaf(self, iid: int, path: Sequence[int]):
-        """Instance ``iid`` evicted the leaf at ``path`` (root→leaf keys).
-        Only the final node loses the bit (radix eviction removes leaves
-        only, so chains stay prefix-closed)."""
-        kids = self._kids
-        node = 0
-        for b in path:
-            node = kids[node].get(b)
-            if node is None:
-                return
-        w = iid >> 6
-        mbit = 1 << (iid & 63)
-        v = self._masks.item(node, w)
-        if v & mbit:
-            self._masks[node, w] = np.uint64(v & ~mbit)
-            self._pop[node] -= 1
-        # prune the freed tail: no instance holds it, nothing hangs off
-        pop = self._pop
-        while node and not pop[node] and not kids[node]:
-            node = self._free_node(node)
-
-    def remove_instance(self, iid: int):
-        """Instance ``iid`` cleared its whole cache: one vectorized
-        column clear over every live row, then a cascade prune."""
-        w = iid >> 6
-        bit = np.uint64(1 << (iid & 63))
-        top = self._top
-        col = self._masks[:top, w]
-        pop, kids, live = self._pop, self._kids, self._live
-        # row 0 (the pinned full root) is excluded; freed rows keep
-        # stale masks until recycled, so filter by liveness
-        hits = [nid for nid in np.flatnonzero((col & bit) != 0).tolist()
-                if nid and live[nid]]
-        if not hits:
-            return
-        col[np.fromiter(hits, np.int64, len(hits))] &= ~bit
-        stack = []
-        for nid in hits:
-            pop[nid] -= 1
-            if not pop[nid] and not kids[nid]:
-                stack.append(nid)
-        while stack:
-            nid = stack.pop()
-            if not live[nid] or pop[nid] or kids[nid]:
-                continue
-            parent = self._free_node(nid)
-            if parent and not pop[parent] and not kids[parent]:
-                stack.append(parent)
-
-    # ---- queries ------------------------------------------------------
-    def _scatter(self, words: np.ndarray, depth: int, out: np.ndarray):
-        bits = np.unpackbits(words.view(np.uint8), bitorder="little",
-                             count=self.n)
-        out[bits.astype(bool)] = depth
-
-    def match_depths(self, blocks: Sequence[int],
-                     out: Optional[np.ndarray] = None) -> np.ndarray:
-        """Per-instance cached-prefix depth (in blocks) for ``blocks``."""
-        if out is None:
-            out = np.zeros(self.n, dtype=np.int64)
-        else:
-            out[:] = 0
-        kids = self._kids
-        pop = self._pop
-        masks = self._masks
-        node = 0
-        cur_kids = kids[0]
-        cur = self.n                 # popcount of the live set (= node's)
-        d = 0
-        segs: List[Tuple[np.ndarray, int]] = []
-        alive = True
-        for b in blocks:
-            child = cur_kids.get(b)
-            if child is None:
-                break
-            pc = pop[child]
-            if pc != cur:            # subset invariant: strict narrowing
-                if d:
-                    segs.append((masks[node] & ~masks[child], d))
-                if not pc:
-                    alive = False
-                    break
-                cur = pc
-            node = child
-            cur_kids = kids[child]
-            d += 1
-        for words, dep in segs:
-            self._scatter(words, dep, out)
-        if alive and d:
-            self._scatter(masks[node], d, out)
-        return out
-
-    def match_depths_many(self, chains: Sequence[Sequence[int]],
-                          order: Optional[Sequence[int]] = None,
-                          adj: Optional[np.ndarray] = None,
-                          out: Optional[np.ndarray] = None) -> np.ndarray:
-        """``match_depths`` for a whole wave of chains at once, walking
-        them in lexicographic order and resuming each walk from the
-        shared-prefix frontier of its predecessor.  Pass ``(order, adj)``
-        from :func:`_sorted_lcp` to share the sort with the pairwise-LCP
-        matrix."""
-        k = len(chains)
-        if out is None:
-            out = np.zeros((k, self.n), dtype=np.int64)
-        else:
-            out[:] = 0
-        if k == 0:
-            return out
-        if order is None:
-            order, adj = _sorted_lcp(chains)
-        kids = self._kids
-        pop = self._pop
-        masks = self._masks
-        rows: List[int] = []
-        seg_words: List[np.ndarray] = []
-        seg_depths: List[int] = []
-        nodes = [0]      # frame stack: nodes[d] = node after d blocks
-        # (descend_depth, lost_words, matched_depth) along current path
-        loss: List[Tuple[int, np.ndarray, int]] = []
-        for t, r in enumerate(order):
-            blocks = chains[r]
-            p = int(adj[t]) if t else 0
-            if p > len(nodes) - 1:
-                p = len(nodes) - 1
-            del nodes[p + 1:]
-            while loss and loss[-1][0] > p:
-                loss.pop()
-            node = nodes[p]
-            cur_kids = kids[node]
-            cur = pop[node]
-            d = p
-            empty = False
-            for b in blocks[d:]:
-                child = cur_kids.get(b)
-                if child is None:
-                    break
-                pc = pop[child]
-                if pc != cur:
-                    if d:
-                        loss.append(
-                            (d + 1, masks[node] & ~masks[child], d))
-                    if not pc:
-                        empty = True
-                        break
-                    cur = pc
-                node = child
-                cur_kids = kids[child]
-                nodes.append(child)
-                d += 1
-            for _, words, md in loss:
-                rows.append(r)
-                seg_words.append(words)
-                seg_depths.append(md)
-            if not empty and d:
-                rows.append(r)
-                seg_words.append(masks[node])
-                seg_depths.append(d)
-        if rows:
-            buf = np.empty((len(seg_words), self.words), dtype=_WORD)
-            for i, wds in enumerate(seg_words):
-                buf[i] = wds
-            bits = np.unpackbits(buf.view(np.uint8), axis=1,
-                                 bitorder="little",
-                                 count=self.n).astype(bool)
-            # a handful of disjoint segments per chain: masked row
-            # assignment
-            for i, r in enumerate(rows):
-                out[r][bits[i]] = seg_depths[i]
-        return out
-
-
-def _lcp_block(chains: Sequence[Sequence[int]], out: np.ndarray,
-               idxs: Sequence[int], max_elems: int = 4_000_000):
-    """Brute-force pairwise LCP of ``chains[idxs]`` scattered into
-    ``out``, row-tiled to bound the (rows, g, L) temporary.  O(g²·L):
-    the differential reference of :func:`_pairwise_lcp`."""
-    g = len(idxs)
-    lens = np.fromiter((len(chains[i]) for i in idxs), np.int64, g)
-    L = int(lens.max())
-    B = np.zeros((g, L), dtype=np.int64)
-    for row, i in enumerate(idxs):
-        B[row, : len(chains[i])] = chains[i]
-    has = np.arange(L)[None, :] < lens[:, None]
-    idxs = np.asarray(idxs)
-    step = max(1, max_elems // max(g * L, 1))
-    for r0 in range(0, g, step):
-        r1 = min(r0 + step, g)
-        eq = (B[r0:r1, None, :] == B[None, :, :]) \
-            & has[r0:r1, None, :] & has[None, :, :]
-        out[np.ix_(idxs[r0:r1], idxs)] = np.cumprod(
-            eq, axis=2, dtype=np.int8).sum(axis=2, dtype=np.int64)
-
-
-def _lcp_pair(a: Sequence[int], b: Sequence[int]) -> int:
-    """LCP of two chains by galloping + binary search over C-level
-    tuple-slice equality (no per-element Python arithmetic)."""
-    m = min(len(a), len(b))
-    if m == 0 or a[0] != b[0]:
-        return 0
-    lo, k = 1, 2                        # a[:lo] == b[:lo] holds
-    while k < m and a[:k] == b[:k]:
-        lo, k = k, 2 * k
-    if k >= m:
-        if a[:m] == b[:m]:
-            return m
-        hi = m
-    else:
-        hi = k
-    while lo + 1 < hi:
-        mid = (lo + hi) // 2
-        if a[:mid] == b[:mid]:
-            lo = mid
-        else:
-            hi = mid
-    return lo
-
-
-def _sorted_lcp(chains: Sequence[Sequence[int]]
-                ) -> Tuple[List[int], np.ndarray]:
-    """Lexicographic sort order + adjacent-LCP array for a wave:
-    ``order[t]`` indexes chains in sorted order, ``adj[t]`` is the LCP
-    (in blocks) of sorted chains ``t-1`` and ``t`` (``adj[0] = 0``)."""
-    u = len(chains)
-    order = sorted(range(u), key=chains.__getitem__)
-    adj = np.zeros(u, dtype=np.int64)
-    for t in range(1, u):
-        adj[t] = _lcp_pair(chains[order[t - 1]], chains[order[t]])
-    return order, adj
-
-
-def _pairwise_lcp(chains: Sequence[Sequence[int]],
-                  order: Optional[Sequence[int]] = None,
-                  adj: Optional[np.ndarray] = None) -> np.ndarray:
-    """Pairwise longest-common-prefix (in blocks) of block-id chains,
-    reconstructed from the sorted adjacent-LCP array: for sorted chains
-    ``LCP(t, t') = min(adj[t+1..t'])`` — u running-minimum sweeps."""
-    u = len(chains)
-    if u == 0:
-        return np.zeros((0, 0), dtype=np.int64)
-    if order is None:
-        order, adj = _sorted_lcp(chains)
-    M = np.zeros((u, u), dtype=np.int64)
-    for t in range(u - 1):
-        M[t, t + 1:] = np.minimum.accumulate(adj[t + 1:])
-    M += M.T
-    lens = np.fromiter((len(chains[i]) for i in order), np.int64, u)
-    np.fill_diagonal(M, lens)
-    rank = np.empty(u, dtype=np.int64)
-    rank[np.fromiter(order, np.int64, u)] = np.arange(u)
-    return M[np.ix_(rank, rank)]
 
 
 class InstanceState:
@@ -568,49 +208,104 @@ class InstanceState:
 
 
 class _WaveHandle:
-    """A wave's walk stage: the requests, their unique chains, the shared
-    lexicographic sort and the per-unique-chain depth matrix."""
+    """In-flight wave walk: everything ``wave_collect`` needs to finish
+    the host half of a wave — the requests, their unique chains, the
+    shared lexicographic sort, the per-unique-chain depth matrix and the
+    (possibly asynchronous) shard backend's walk handle.  The routing
+    pipeline holds one of these across a speculative prefetch."""
 
     __slots__ = ("reqs", "uid", "chains", "order", "adj", "depth_u",
-                 "submit_ns")
+                 "handle", "submit_ns")
 
-    def __init__(self, reqs, uid, chains, order, adj, depth_u, submit_ns):
+    def __init__(self, reqs, uid, chains, order, adj, depth_u, handle,
+                 submit_ns):
         self.reqs = reqs
         self.uid = uid
         self.chains = chains
         self.order = order
         self.adj = adj
         self.depth_u = depth_u
+        self.handle = handle
         self.submit_ns = submit_ns
 
 
 class IndicatorFactory:
     def __init__(self, n_instances: int, kv_capacity_tokens: int = 1 << 62,
                  block_size: int = 64, exact_only: bool = False,
-                 device="cuda"):
+                 n_shards: int = 1, parallel_walks: bool = False,
+                 walk_backend: Optional[str] = None,
+                 shard_timeout_s: Optional[float] = None,
+                 fleet=None, device="cuda"):
+        if fleet is not None:
+            raise not_ported("a heterogeneous fleet", 6, "core/fleet.py")
         self.n = n_instances
         self.block_size = block_size
         self.exact_only = exact_only
+        self.walk_backend = walk_backend
+        self.parallel_walks = parallel_walks
+        self.shard_timeout_s = shard_timeout_s
         self.device = resolve_device(device)
+        # degraded-mode telemetry: walk-backend deaths survived by
+        # rebuilding (one shard of) the index from the per-instance radix
+        # trees; on_degraded_rebuild(n) fires once per increment, never
+        # again when the triggering walk or mutation is retried
+        self.degraded_rebuilds = 0
+        self.on_degraded_rebuild = None
+        # anti-entropy telemetry: scoped repairs performed, digest
+        # mismatches seen, the sweep cursor and per-repair wall cost;
+        # on_shard_repair(s, n) fires exactly once per repair
+        self.shard_repairs = 0
+        self.verify_mismatches = 0
+        self.repair_ns: List[int] = []
+        self.on_shard_repair = None
+        self._sweep_cursor = 0
+        self._fault_injector = None
+        self.on_backend_event = None
+        # shard count for the aggregated index AND the device-mirror
+        # partition (same shard_bounds cut); 1 = the unsharded flat index
+        self.n_shards = max(1, min(int(n_shards), n_instances))
         # --- the array contract (see module docstring) -------------------
         self.r_bs = np.zeros(n_instances, dtype=np.int64)
         self.q_bs = np.zeros(n_instances, dtype=np.int64)
         self.queued_prefill_tokens = np.zeros(n_instances, dtype=np.int64)
         self.total_tokens = np.zeros(n_instances, dtype=np.int64)
         self._hit_depths = np.zeros(n_instances, dtype=np.int64)
-        # device mirror: None = dirty (re-upload on the next device_view)
-        self._dev = None
-        self._staging = None          # pinned (4, n) upload buffer (cuda)
+        # device mirror (see docstring): one dirty flag per shard range;
+        # _dev caches the four row views until a flag is set
+        self._mirror_bounds = shard_bounds(n_instances, self.n_shards)
+        self._mirror_owner = shard_owner(n_instances, self.n_shards)
+        self._dirty = np.ones(self.n_shards, dtype=bool)
+        #: per-range re-upload counts (``device_view`` telemetry)
+        self.mirror_uploads = np.zeros(self.n_shards, dtype=np.int64)
+        self._mirror = None           # (4, n) int64 on self.device
+        self._staging = None          # pinned (4n,) packed runs (cuda)
+        self._packed = None           # device twin of _staging (cuda)
         self._staged = None           # event: last upload left _staging
+        self._dev = None
         # mid-wave plan invalidation signal for Router.route_batch
         self.evictions = 0
         # host-walk telemetry: aggregated-index walk time / walk count
         # (per unique prompt), surfaced by Router.mean_walk_us
         self.walk_ns = 0
         self.walks = 0
+        # speculative-walk insert capture (see begin_insert_capture)
+        self._capture = None
+        self._capture_ev0 = 0
         # exact_only hit semantics (deepest snapshot boundary) cannot be
         # read off chain membership alone -> scalar per-instance fallback
-        self._agg = None if exact_only else AggregatedPrefixIndex(n_instances)
+        if exact_only:
+            self._agg = None
+        elif self.n_shards == 1 and walk_backend is None:
+            self._agg = AggregatedPrefixIndex(n_instances)
+        else:
+            # an explicit walk backend always builds the sharded index
+            # (even at one shard) so backend sweeps compare like with
+            # like; decisions are bit-identical either way
+            from .sharded_index import ShardedPrefixIndex
+            self._agg = ShardedPrefixIndex(n_instances, self.n_shards,
+                                           parallel=parallel_walks,
+                                           backend=walk_backend,
+                                           timeout_s=shard_timeout_s)
         self.instances = []
         for i in range(n_instances):
             kv = RadixKVIndex(block_size=block_size,
@@ -618,18 +313,304 @@ class IndicatorFactory:
                               exact_only=exact_only)
             if self._agg is not None:
                 kv.on_insert = (lambda blocks, _i=i:
-                                self._agg.add(_i, blocks))
-                kv.on_evict = (lambda path, _i=i: self._on_evict(_i, path))
+                                self._on_insert(_i, blocks))
+                kv.on_evict = (lambda path, _i=i:
+                               self._on_evict(_i, path))
                 kv.on_clear = (lambda _i=i: self._on_clear(_i))
             self.instances.append(InstanceState(i, self, kv))
+        self._wire_agg()
+
+    def _wire_agg(self):
+        """Arm the aggregated index's self-healing hooks: the factory
+        is the canonical chains provider (supervised worker recovery
+        rebuilds only from it), and an attached fault injector and
+        backend-event hook carry over to replacement backends."""
+        agg = self._agg
+        if agg is None:
+            return
+        sp = getattr(agg, "set_chains_provider", None)
+        if sp is not None:
+            sp(self._shard_chains)
+        if self._fault_injector is not None:
+            af = getattr(agg, "attach_faults", None)
+            if af is not None:
+                af(self._fault_injector)
+        if self.on_backend_event is not None:
+            backend = getattr(agg, "backend", None)
+            if backend is not None:
+                backend.on_event = self.on_backend_event
+
+    def attach_backend_events(self, cb):
+        """Wire ``cb(kind, shard, info)`` to the shard backend's
+        recovery events (restart / timeout / escalation / repair);
+        survives degraded rebuilds.  None disarms."""
+        self.on_backend_event = cb
+        agg = self._agg
+        backend = getattr(agg, "backend", None) if agg is not None \
+            else None
+        if backend is not None:
+            backend.on_event = cb
+
+    def _mutate_recover(self, e, op, *args):
+        """A routed mutation failed: scoped repair when the error names
+        a shard, full rebuild otherwise, then re-apply the mutation —
+        all three index mutations are idempotent, so re-applying after
+        a repair that already replayed it is a no-op."""
+        shard = getattr(e, "shard", None)
+        self._rebuild_index(shard=shard)
+        if shard is not None:
+            try:
+                getattr(self._agg, op)(*args)
+            except (RuntimeError, OSError):
+                self._rebuild_index()
+
+    def _on_insert(self, iid: int, blocks):
+        try:
+            self._agg.add(iid, blocks)
+        except (RuntimeError, OSError) as e:
+            self._mutate_recover(e, "add", iid, blocks)
+            # the rebuild/repair replays the tree, this insert included
+        if self._capture is not None:
+            self._capture.append((iid, blocks))
 
     def _on_evict(self, iid: int, path):
         self.evictions += 1
-        self._agg.remove_leaf(iid, path)
+        try:
+            self._agg.remove_leaf(iid, path)
+        except (RuntimeError, OSError) as e:
+            self._mutate_recover(e, "remove_leaf", iid, path)
 
     def _on_clear(self, iid: int):
         self.evictions += 1
-        self._agg.remove_instance(iid)
+        try:
+            self._agg.remove_instance(iid)
+        except (RuntimeError, OSError) as e:
+            self._mutate_recover(e, "remove_instance", iid)
+
+    # ---- lifecycle -------------------------------------------------------
+    def close(self):
+        """Tear down the aggregated index's execution backend (thread
+        pools, process workers + their shared-memory segments).  Serial
+        factories are unaffected; any factory is safe to close twice.
+        ``with IndicatorFactory(...) as f:`` closes on exit."""
+        agg = self._agg
+        if agg is not None and hasattr(agg, "close"):
+            agg.close()
+
+    def __enter__(self) -> "IndicatorFactory":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    # ---- speculative-walk insert capture ---------------------------------
+    def begin_insert_capture(self):
+        """Start recording ``(iid, blocks)`` aggregate inserts.
+
+        The routing pipeline brackets a speculative next-wave walk with
+        begin/end: every chain inserted between the walk's snapshot and
+        its use is captured, and the walk result is patched with the
+        exact cross-wave LCP credit (a tree's hit depth is the max over
+        its stored chains of the LCP, so ``max(old_depth, lcp(chain,
+        inserted))`` is the depth a fresh walk would return).  An
+        eviction, clear or repair invalidates the capture — it cannot be
+        credited — and the pipeline walks fresh instead.
+        """
+        self._capture = []
+        self._capture_ev0 = self.evictions
+
+    def end_insert_capture(self):
+        """Stop recording; returns ``(inserts, valid)`` where ``valid``
+        is False if any eviction/clear fired during the capture."""
+        cap, self._capture = self._capture, None
+        if cap is None:
+            return [], False
+        return cap, self.evictions == self._capture_ev0
+
+    # ---- paths of later slices -------------------------------------------
+    def on_instance_failed(self, iid: int):
+        raise not_ported("instance failure", 7, "the router's churn hooks")
+
+    def window_stats(self, now: float, window: float, trim: bool = True):
+        raise not_ported("the routed-window rings", 7,
+                         "Preble's windowed fallback")
+
+    def feasible_mask(self, requirement: str):
+        raise not_ported("capability masks", 6, "core/fleet.py")
+
+    # ---- degraded mode (walk-backend death) ------------------------------
+    def _rebuild_index(self, shard: Optional[int] = None):
+        """A walk backend died mid-query.  When the error named a shard
+        (``ShardError.shard``) and the surviving backend can repair in
+        place, rebuild **only that shard's range** from the per-instance
+        radix trees — healthy shards' node arrays are untouched.
+        Otherwise tear the broken index down, build a replacement (same
+        sharded flavour with fresh workers; a serial flat index when the
+        respawn fails too), and repopulate it from KV truth.  Either way
+        bumps the eviction counter so any in-flight wave plan or
+        speculative capture is invalidated."""
+        self.degraded_rebuilds += 1
+        cb = self.on_degraded_rebuild
+        if cb is not None:
+            # fire exactly here — the one place the counter increments —
+            # so a retried walk or mutation cannot double-emit; observer
+            # faults must never break the rebuild itself
+            try:
+                cb(self.degraded_rebuilds)
+            except Exception:
+                pass
+        self.evictions += 1
+        if shard is not None and self._repair_in_place(shard):
+            return
+        old, self._agg = self._agg, None
+        if old is not None and hasattr(old, "close"):
+            try:
+                old.close()
+            except Exception:
+                pass                      # the backend is already broken
+        agg = None
+        if self.walk_backend is not None or self.n_shards > 1:
+            from .sharded_index import ShardedPrefixIndex
+            try:
+                agg = ShardedPrefixIndex(self.n, self.n_shards,
+                                         parallel=self.parallel_walks,
+                                         backend=self.walk_backend,
+                                         timeout_s=self.shard_timeout_s)
+            except Exception:
+                agg = None                # respawn failed: go serial
+        if agg is None:
+            agg = AggregatedPrefixIndex(self.n)
+        for inst in self.instances:
+            for chain in inst.kv.chains():
+                agg.add(inst.iid, chain)
+        # the kv callbacks close over self._agg dynamically, so the
+        # swap retargets every future insert/evict/clear
+        self._agg = agg
+        self._wire_agg()
+
+    def _walk_retry(self, e, fn):
+        """Bounded degraded-mode retry for a failed walk: scoped repair
+        when the error names a shard, full rebuild otherwise, then re-run
+        the walk.  Bounded by shards + 1 attempts — each repair heals one
+        shard, so a plan injecting consecutive crashes on every shard
+        still converges instead of looping."""
+        for _ in range(self._index_shards() + 1):
+            self._rebuild_index(shard=getattr(e, "shard", None))
+            try:
+                return fn()
+            except (RuntimeError, OSError) as e2:
+                e = e2
+        raise e
+
+    def _repair_in_place(self, s: int) -> bool:
+        """Try the scoped repair; False falls back to the full rebuild
+        (no ``repair_shard`` on the index, backend already torn down,
+        or the repair itself failed)."""
+        agg = self._agg
+        if agg is None or not hasattr(agg, "repair_shard"):
+            return False
+        backend = getattr(agg, "backend", None)
+        if backend is not None and getattr(backend, "_closed", False):
+            return False
+        try:
+            self.repair_shard(s, _count_rebuild=False)
+        except Exception:
+            return False
+        return True
+
+    # ---- anti-entropy ----------------------------------------------------
+    def _index_shards(self) -> int:
+        """Shard count of the live aggregated index (1 for the flat
+        unsharded index, 0 for exact_only factories)."""
+        agg = self._agg
+        return getattr(agg, "n_shards", 1) if agg is not None else 0
+
+    def _shard_chains(self, s: int) -> List[Tuple[int, list]]:
+        """Canonical truth for shard ``s``: every ``(local_iid, chain)``
+        in its instance range, read from the per-instance radix trees."""
+        lo, hi = shard_bounds(self.n, self._index_shards())[s]
+        pairs = []
+        for iid in range(lo, hi):
+            for chain in self.instances[iid].kv.chains():
+                pairs.append((iid - lo, chain))
+        return pairs
+
+    def attach_faults(self, injector):
+        """Arm deterministic fault injection
+        (``repro_torch.core.faults.FaultInjector``) on the aggregated
+        index's backend; survives degraded rebuilds.  None disarms."""
+        self._fault_injector = injector
+        agg = self._agg
+        if agg is not None:
+            af = getattr(agg, "attach_faults", None)
+            if af is not None:
+                af(injector)
+
+    def verify_shard(self, s: int) -> bool:
+        """True iff shard ``s``'s aggregated index agrees with KV truth:
+        the incremental digest, a rescan of the bitset rows, and a
+        replay of ``RadixKVIndex.chains()`` all produce the same digest
+        triple.  Counts mismatches; never mutates."""
+        agg = self._agg
+        if agg is None:
+            return True
+        truth = digest_from_chains(self._shard_chains(s))
+        sd = getattr(agg, "shard_digest", None)
+        if sd is not None:
+            inc, scan = sd(s)
+        else:
+            inc, scan = agg.digest, agg.rescan_digest()
+        ok = tuple(inc) == truth and tuple(scan) == truth
+        if not ok:
+            self.verify_mismatches += 1
+        return ok
+
+    def repair_shard(self, s: int, _count_rebuild: bool = True):
+        """Rebuild shard ``s`` — and only shard ``s`` — from canonical
+        KV truth, leaving healthy shards' node arrays untouched.  Bumps
+        the eviction counter (a repaired shard may answer differently,
+        so in-flight plans and speculative captures are invalid) and
+        fires ``on_shard_repair`` exactly once."""
+        agg = self._agg
+        if agg is None:
+            return
+        t0 = time.perf_counter_ns()
+        rp = getattr(agg, "repair_shard", None)
+        if rp is not None:
+            rp(s, self._shard_chains(s))
+        else:
+            # flat unsharded index: shard 0 is the whole index
+            agg.reset()
+            for li, chain in self._shard_chains(0):
+                agg.add(li, chain)
+        self.repair_ns.append(time.perf_counter_ns() - t0)
+        self.shard_repairs += 1
+        if _count_rebuild:
+            self.evictions += 1
+        cb = self.on_shard_repair
+        if cb is not None:
+            try:
+                cb(s, self.shard_repairs)
+            except Exception:
+                pass
+
+    def anti_entropy_step(self, k: int = 1) -> int:
+        """Budgeted background sweep: verify the next ``k`` shards in
+        cursor order, repairing any whose digests disagree with KV
+        truth.  Returns the number of repairs performed — callers run it
+        once per wave with small ``k``."""
+        if self._agg is None or k <= 0:
+            return 0
+        S = self._index_shards()
+        repaired = 0
+        for _ in range(min(int(k), S)):
+            s = self._sweep_cursor % S
+            self._sweep_cursor += 1
+            if not self.verify_shard(s):
+                self.repair_shard(s)
+                repaired += 1
+        return repaired
 
     def __len__(self):
         return self.n
@@ -648,7 +629,14 @@ class IndicatorFactory:
         """Per-instance KV$ hit tokens (capped at the prompt length)."""
         if self._agg is not None:
             t0 = time.perf_counter_ns()
-            depths = self._agg.match_depths(req.blocks, out=self._hit_depths)
+            try:
+                depths = self._agg.match_depths(req.blocks,
+                                                out=self._hit_depths)
+            except (RuntimeError, OSError) as e:
+                # degraded: scoped repair (or full rebuild) + retry
+                depths = self._walk_retry(
+                    e, lambda: self._agg.match_depths(
+                        req.blocks, out=self._hit_depths))
             self.walk_ns += time.perf_counter_ns() - t0
             self.walks += 1
             hits = depths * self.block_size
@@ -666,47 +654,107 @@ class IndicatorFactory:
 
     def mean_walk_us(self) -> float:
         """Mean host cost of one aggregated-index walk (per unique
-        prompt), from the ``walk_ns``/``walks`` telemetry."""
+        prompt), from the ``walk_ns``/``walks`` telemetry.  On a sharded
+        factory a "walk" is the full fan-out across every shard
+        (including the shared lexicographic sort); ``shard_walk_stats``
+        breaks the same work down per shard."""
         return self.walk_ns / max(self.walks, 1) / 1e3
+
+    def shard_walk_stats(self) -> List[dict]:
+        """Per-shard host-walk telemetry: one record per shard with its
+        instance range ``[lo, hi)``, walks served, and mean per-walk
+        cost in µs.  An unsharded (or ``exact_only``) factory reports a
+        single pseudo-shard covering ``[0, n)``; the max over shards is
+        the critical path a parallel walk fan-out pays per wave."""
+        stats = getattr(self._agg, "shard_stats", None)
+        if stats is not None:
+            return stats()
+        return [{"shard": 0, "lo": 0, "hi": self.n,
+                 "walks": int(self.walks),
+                 "mean_walk_us": self.mean_walk_us()}]
 
     # ---- device mirror (dirty-flag sync contract, see docstring) ---------
     def mark_dirty(self, iid: Optional[int] = None):
         """Invalidate the device mirror after an in-place indicator
-        write.  ``iid`` names the touched instance; with one mirror
-        partition every write dirties the whole mirror."""
+        write.  ``mark_dirty(iid)`` flips only the mirror range that
+        owns instance ``iid`` (what every built-in hook passes); a bare
+        ``mark_dirty()`` flips every range and is always safe for
+        callers that batch-write slices of ``factory.r_bs`` and friends."""
+        if iid is None:
+            self._dirty[:] = True
+        else:
+            self._dirty[self._mirror_owner[iid]] = True
         self._dev = None
+
+    def _dirty_runs(self) -> List[List[int]]:
+        """The dirty mirror ranges as ``[lo, hi)`` runs, adjacent
+        ranges coalesced."""
+        runs: List[List[int]] = []
+        for s in np.flatnonzero(self._dirty).tolist():
+            lo, hi = self._mirror_bounds[s]
+            if runs and runs[-1][1] == lo:
+                runs[-1][1] = hi
+            else:
+                runs.append([lo, hi])
+        return runs
 
     def device_view(self) -> Tuple[torch.Tensor, ...]:
         """(r_bs, q_bs, queued_prefill_tokens, total_tokens) as int64
-        tensors on ``self.device``, re-uploaded only if a hook wrote
-        since the last call.  Read-only by contract."""
+        tensors on ``self.device``; only the mirror ranges a hook
+        dirtied since the last call are re-uploaded.  Read-only by
+        contract."""
         if self._dev is not None:
             return self._dev
         cols = (self.r_bs, self.q_bs, self.queued_prefill_tokens,
                 self.total_tokens)
-        if self.device.type == "cpu":
-            mirror = torch.from_numpy(np.stack(cols))     # a copy
-        else:
-            if self._staging is None:
-                self._staging = torch.empty((4, self.n), dtype=torch.int64,
-                                            pin_memory=True)
-                self._staged = torch.cuda.Event()
-            else:
-                # the previous non-blocking upload must have left the
-                # staging buffer before it is overwritten
-                self._staged.synchronize()
-            np.stack(cols, out=self._staging.numpy())
-            mirror = self._staging.to(self.device, non_blocking=True)
+        runs = self._dirty_runs()
+        on_card = self.device.type == "cuda"
+        if self._mirror is None:
+            self._mirror = torch.empty((4, self.n), dtype=torch.int64,
+                                       device=self.device)
+            self._staging = torch.empty(4 * self.n, dtype=torch.int64,
+                                        pin_memory=on_card)
+            # on the CPU the packed runs are copied from the staging itself
+            self._packed = (torch.empty(4 * self.n, dtype=torch.int64,
+                                        device=self.device)
+                            if on_card else self._staging)
+            self._staged = torch.cuda.Event() if on_card else None
+        elif on_card:
+            # the previous non-blocking copies must have left the
+            # staging buffer before any of it is overwritten
+            self._staged.synchronize()
+        # the CUDA mirror is refreshed in place, the CPU one is a copy
+        mirror = self._mirror if on_card else self._mirror.clone()
+        host = self._staging.numpy()
+        for lo, hi in runs:
+            w = hi - lo
+            block = host[4 * lo:4 * hi].reshape(4, w)
+            for r, c in enumerate(cols):
+                block[r] = c[lo:hi]
+            if w == self.n:
+                mirror.view(-1).copy_(self._staging, non_blocking=True)
+                continue
+            packed = self._packed[4 * lo:4 * hi]
+            if on_card:
+                packed.copy_(self._staging[4 * lo:4 * hi],
+                             non_blocking=True)
+            mirror[:, lo:hi].copy_(packed.view(4, w))
+        if on_card:
             self._staged.record()
-        self._dev = tuple(mirror.unbind(0))
+        self._mirror = mirror
+        self.mirror_uploads[self._dirty] += 1
+        self._dirty[:] = False
+        self._dev = tuple(self._mirror.unbind(0))
         return self._dev
 
     # ---- wave inputs (host half of the batch routing path) ---------------
     def wave_submit(self, reqs: Sequence[Request]) -> _WaveHandle:
         """Start the walk stage for an arrival wave: dedup to unique
-        chains, compute the shared lexicographic sort, and run one
-        LCP-chained aggregated-index walk per unique prompt.  Requires
-        the aggregated index."""
+        chains, compute the shared lexicographic sort, and submit one
+        LCP-chained aggregated-index walk per unique prompt.  On
+        asynchronous backends (thread/process shard fan-out) the walk
+        runs while the caller does other work; ``wave_collect`` blocks
+        for the result.  Requires the aggregated index."""
         k = len(reqs)
         uid = np.empty(k, dtype=np.int64)
         uniq: Dict[tuple, int] = {}
@@ -718,14 +766,45 @@ class IndicatorFactory:
             chains[u] = blocks
         t0 = time.perf_counter_ns()
         order, adj = _sorted_lcp(chains)
-        depth_u = self._agg.match_depths_many(chains, order=order, adj=adj)
-        return _WaveHandle(tuple(reqs), uid, chains, order, adj, depth_u,
+        submit = getattr(self._agg, "submit_many", None)
+        try:
+            if submit is not None:
+                depth_u, handle = submit(chains, order=order, adj=adj)
+            else:
+                depth_u = self._agg.match_depths_many(chains, order=order,
+                                                      adj=adj)
+                handle = None
+        except (RuntimeError, OSError) as e:
+            # walk backend died on dispatch: repair (scoped to the
+            # failed shard when the error names one) and run this
+            # wave's walk on the healed index
+            depth_u = self._walk_retry(
+                e, lambda: self._agg.match_depths_many(chains,
+                                                       order=order,
+                                                       adj=adj))
+            handle = None
+        return _WaveHandle(tuple(reqs), uid, chains, order, adj,
+                           depth_u, handle,
                            time.perf_counter_ns() - t0)
 
     def wave_collect(self, h: _WaveHandle, with_lcp: bool = True):
-        """Finish a wave walk: account walk telemetry and derive the
+        """Finish a submitted wave walk: wait for the depth matrix,
+        account walk telemetry (submit cost + blocked wait — the host
+        time the walk actually held up routing), and derive the
         pairwise-LCP matrix from the shared sort."""
-        self.walk_ns += h.submit_ns
+        t0 = time.perf_counter_ns()
+        if h.handle is not None:
+            try:
+                h.handle.wait()
+            except (RuntimeError, OSError) as e:
+                # a shard worker died mid-query (degraded mode): repair
+                # and recompute this wave's walk — the wave proceeds
+                # instead of raising
+                h.depth_u = self._walk_retry(
+                    e, lambda: self._agg.match_depths_many(
+                        h.chains, order=h.order, adj=h.adj))
+                h.handle = None
+        self.walk_ns += h.submit_ns + (time.perf_counter_ns() - t0)
         self.walks += len(h.chains)
         k = len(h.reqs)
         lcp = (_pairwise_lcp(h.chains, order=h.order, adj=h.adj)
@@ -733,9 +812,25 @@ class IndicatorFactory:
         plen = np.fromiter((r.prompt_len for r in h.reqs), np.int64, k)
         return h.depth_u[h.uid], lcp, plen
 
+    def wave_discard(self, h: _WaveHandle):
+        """Wait out a submitted walk without consuming it (mispredicted
+        speculation).  The wait keeps asynchronous backends' protocol
+        in sync; nothing is added to walk telemetry — no routed wave
+        was served by this walk."""
+        if h.handle is not None:
+            try:
+                h.handle.wait()
+            except (RuntimeError, OSError) as e:
+                # the speculation is being dropped anyway; just heal
+                # the broken shard (or replace the backend) so the
+                # next wave has an index
+                self._rebuild_index(shard=getattr(e, "shard", None))
+
     def wave_inputs(self, reqs: Sequence[Request], with_lcp: bool = True):
         """(depth (k,n), lcp (k,k) | None, plen (k,)) for an arrival wave:
-        one LCP-chained walk per unique prompt plus the pairwise
-        block-chain LCP matrix the device loop needs to credit intra-wave
-        inserts.  ``wave_submit`` + ``wave_collect`` in one breath."""
-        return self.wave_collect(self.wave_submit(reqs), with_lcp=with_lcp)
+        one LCP-chained aggregated-index walk per unique prompt plus the
+        pairwise block-chain LCP matrix the device loop needs to credit
+        intra-wave inserts.  ``wave_submit`` + ``wave_collect`` in one
+        breath."""
+        return self.wave_collect(self.wave_submit(reqs),
+                                 with_lcp=with_lcp)

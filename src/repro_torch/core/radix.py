@@ -139,6 +139,13 @@ class RadixKVIndex:
             if parent is not self.root and not parent.children:
                 heapq.heappush(leaves, (parent.last_use, id(parent), parent))
 
+    def evict_tokens(self, n_tokens: int):
+        """Force-evict at least ``n_tokens`` (LRU leaves)."""
+        save = self.capacity_tokens
+        self.capacity_tokens = max(self.tokens_stored - n_tokens, 0)
+        self._evict_to_capacity()
+        self.capacity_tokens = save
+
     # ------------------------------------------------------------------
     def chains(self):
         """Yield every root→leaf key path (the tree's maximal chains);

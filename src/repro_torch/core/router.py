@@ -17,11 +17,21 @@ would be).
 ``device`` (default ``"cuda"``) is where the indicator mirror lives and
 the score stage runs; construction fails without a card unless
 ``device="cpu"`` is asked for explicitly.
+
+``n_shards > 1`` shards the factory's aggregated prefix index (and the
+device-mirror partition) by instance-id range, and ``walk_backend``
+(``"serial"``, ``"thread"`` or ``"process"``; ``parallel_walks=True``
+means ``"thread"``) picks where the per-shard walks run — decisions are
+bit-identical at any shard count on any backend.  On asynchronous
+backends the pipeline overlaps the next wave's walk with this wave's
+score stage (``pipeline_overlap``: None = automatic).
+``anti_entropy_k`` digest-verifies that many shards after every wave.
+A router with worker processes must be closed (``close`` or ``with``).
 """
 from __future__ import annotations
 
 import time
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from .indicators import IndicatorFactory
 from .pipeline import RoutingPipeline
@@ -52,19 +62,43 @@ class Router:
     def __init__(self, policy: Policy, n_instances: int,
                  kv_capacity_tokens: int = 1 << 62, block_size: int = 64,
                  exact_only: bool = False, insert_on_route: bool = True,
-                 device="cuda"):
+                 n_shards: int = 1, parallel_walks: bool = False,
+                 walk_backend: Optional[str] = None,
+                 pipeline_overlap: Optional[bool] = None,
+                 shard_timeout_s: Optional[float] = None,
+                 anti_entropy_k: int = 0, device="cuda"):
         self.policy = policy
         self.factory = IndicatorFactory(
             n_instances, kv_capacity_tokens=kv_capacity_tokens,
-            block_size=block_size, exact_only=exact_only, device=device)
+            block_size=block_size, exact_only=exact_only,
+            n_shards=n_shards, parallel_walks=parallel_walks,
+            walk_backend=walk_backend, shard_timeout_s=shard_timeout_s,
+            device=device)
         self.insert_on_route = insert_on_route
         self.decision_ns: List[int] = []
         self.routed = 0
-        self.pipeline = RoutingPipeline(self)
+        self.pipeline = RoutingPipeline(self, overlap=pipeline_overlap)
+        #: anti-entropy budget: shards digest-verified (and repaired on
+        #: mismatch) at the tail of every routed wave; 0 disables it
+        self.anti_entropy_k = int(anti_entropy_k)
 
     @property
     def device(self):
         return self.factory.device
+
+    # ---- lifecycle ----------------------------------------------------
+    def close(self):
+        """Drop any speculative walk and tear down the factory's walk
+        backend (thread pools, process workers and their shared-memory
+        segments).  Required for process backends; safe twice."""
+        self.pipeline.drop_prefetch()
+        self.factory.close()
+
+    def __enter__(self) -> "Router":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     # ------------------------------------------------------------------
     def route(self, req: Request, now: float) -> int:
@@ -100,6 +134,9 @@ class Router:
             return []
         if (len(reqs) == 1 or not self.insert_on_route
                 or not self.policy.batch_supported(self.factory)):
+            # the scalar path mutates the index without an insert
+            # capture, so any pending speculative walk is dropped first
+            self.pipeline.drop_prefetch()
             return [self.route(r, now) for r in reqs]
         return self.pipeline.run_wave(reqs, now)
 
@@ -129,5 +166,20 @@ class Router:
         return self.factory.mean_walk_us()
 
     def stage_stats(self) -> dict:
-        """Per-stage wave timings (walk/score/commit µs per wave)."""
+        """Per-stage wave timings (walk/score/commit µs per wave) and
+        the speculation counters."""
         return self.pipeline.stage_stats()
+
+    def walk_telemetry(self) -> dict:
+        """Shard-tagged walk telemetry for the host half of routing:
+        ``mean_walk_us`` (per unique prompt, fan-out and the shared sort
+        included), ``shards`` (one record per index shard: ``shard``,
+        ``lo``/``hi``, ``walks``, ``mean_walk_us``; an unsharded factory
+        reports one pseudo-shard over [0, n)), ``max_shard_us`` (the
+        slowest shard's mean walk: the critical path of a parallel
+        fan-out) and ``pipeline`` (:meth:`stage_stats`)."""
+        shards = self.factory.shard_walk_stats()
+        return {"mean_walk_us": self.factory.mean_walk_us(),
+                "max_shard_us": max(s["mean_walk_us"] for s in shards),
+                "shards": shards,
+                "pipeline": self.pipeline.stage_stats()}

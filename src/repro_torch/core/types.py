@@ -74,3 +74,11 @@ FAMILY_SLOS = {
 def slo_for_family(family: str) -> SLO:
     """The family's SLO, or ``DEFAULT_SLO`` for unknown/untagged."""
     return FAMILY_SLOS.get(family, DEFAULT_SLO)
+
+
+def not_ported(what: str, item: int, needs: str) -> NotImplementedError:
+    """The error a path left to a later slice of the port raises: it names
+    what is missing and the ROADMAP Queue A item that ports it."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: it needs {needs} "
+        f"(ROADMAP Queue A item {item})")

@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "serving.block_manager", "serving.engine",
                 "cluster.metrics", "kernels.rglru_scan",
                 "kernels.mlstm_cell", "models.recurrent",
-                "configs.recurrentgemma_9b", "configs.xlstm_350m"):
+                "configs.recurrentgemma_9b", "configs.xlstm_350m",
+                "core.prefix_index", "core.faults", "core.shard_backends",
+                "core.sharded_index"):
         assert f"repro_torch.{mod}" in names, mod
 
 
