@@ -91,18 +91,29 @@ Phases (each raises on failure, so any failure exits nonzero):
 13. cluster simulation — ``ClusterSim`` over 16 Qwen2-7B instances on
    the port's H100 latency profile (``spec_from_config``; KV$ per
    instance from the card's memory less the weights, ``sim_kv_capacity``)
-   on three traces (chatbot, agent, coder: the paper's chatbot, API and
-   coding-agent workloads), 2000 requests each at 0.8 x the trace's
-   estimated capacity, arrivals rounded to a 50 ms scheduling tick, under
-   lmetric, vllm and linear; then ``PDDisaggSim`` with 8 prefill and 8
-   decode instances on the chatbot trace.  Each run counts
-   ``route_score`` launches from zero and must finish every request with
-   one launch per arrival wave of two or more; the lmetric chatbot run
-   and the PD run must equal the same runs with the mirror on the CPU,
-   and the PD run its request-by-request routing.  Prints TTFT/TPOT (in
+   on four traces (chatbot, agent, coder, toolagent: the paper's
+   chatbot, API, coding-agent and tool-agent workloads), 2000 requests
+   each at 0.8 x the trace's estimated capacity, arrivals rounded to a
+   50 ms scheduling tick, under the paper's Fig. 22 policies (lmetric,
+   vllm and linear plan their waves on the card; dynamo and llm-d are
+   host-only); then ``PDDisaggSim`` with 8 prefill and 8 decode
+   instances on the chatbot trace; then LMetric with the §5.2 hotspot
+   detector on the four traces (Fig. 20), the hotspot trace (agent
+   traffic with a burst sharing one prefix) under lmetric, lmetric with
+   the detector and vllm (Fig. 21), chatbot under preble and polyserve
+   (Fig. 26), coder under LMetric's "cost" load indicator and agent
+   under session affinity.  Each run counts ``route_score`` launches
+   from zero and must finish every request; lmetric, vllm and linear
+   launch once per arrival wave of two or more, the host-only policies
+   never; the lmetric chatbot run, the PD run and the hotspot detector
+   run must equal the same runs with the mirror on the CPU, the PD run
+   its request-by-request routing, and a detector run that never
+   activates the lmetric run of its trace.  Prints TTFT/TPOT (in
    simulated time), KV$ hit ratio, SLO attainment, wave sizes, launches,
-   host wall and the score stage's µs per wave; one wave's score stage
-   timed alone and in parts (``sim_wave_time``: mirror upload, submit,
+   host wall and the score stage's µs per wave, the detector's Eq. 2
+   checks, violations and activations, Preble's branch counts, and
+   LMetric's TTFT mean against each policy's per trace; one wave's score
+   stage timed alone and in parts (``sim_wave_time``: mirror upload, submit,
    collect; the kernel's device time per wave and per step, cold after
    an L2 flush and warm);
    and the profile's predicted step times beside Qwen2-7B's measured
@@ -127,10 +138,11 @@ Phases (each raises on failure, so any failure exits nonzero):
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed),
-then phase 14's requests; the recurrent paths keep their width and
-depth, and no path keeps fewer instances.  Shard workers are spawned
-processes that re-import this file as their main module, which is why
-it imports ``torch`` only inside ``main()``.
+then phase 14's requests, then the requests of each of phase 13's
+comparison runs (never below 500); the recurrent paths keep their width
+and depth, no run is dropped, and no path keeps fewer instances.  Shard
+workers are spawned processes that re-import this file as their main
+module, which is why it imports ``torch`` only inside ``main()``.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and, instead of
 the phases, traces decode steps and prefill chunks of each served model
@@ -1818,8 +1830,25 @@ def sass_summary(names):
 #: the paper's testbed (§4.1): 16 Qwen2-7B instances; one trace for each
 #: kind of workload it evaluates (chatbots, API calls, coding agents)
 SIM_INSTANCES = 16
-SIM_TRACES = ("chatbot", "agent", "coder")
-SIM_POLICIES = ("lmetric", "vllm", "linear")
+SIM_TRACES = ("chatbot", "agent", "coder", "toolagent")
+#: Fig. 22's policies; the first three plan their waves on the card, the
+#: rest are host-only (as in the reference) and launch nothing
+SIM_POLICIES = ("lmetric", "vllm", "linear", "dynamo", "llm-d")
+DEVICE_POLICIES = ("lmetric", "vllm", "linear")
+#: the device-planned runs on the first three traces; every other run of
+#: the phase (but PD) is a "comparison run", which a late start may cut
+BASE_RUNS = {(f, p) for f in ("chatbot", "agent", "coder")
+             for p in DEVICE_POLICIES}
+#: the predictors of llm-d and PolyServe err by up to 15%, as in the
+#: paper's figures (``benchmarks/common.py``)
+PREDICTOR_ERROR = 0.15
+#: Fig. 21's adversarial trace: agent traffic with a 4-second burst of
+#: requests sharing one 4096-token prefix, at SIM_LOAD x the agent
+#: family's estimated capacity
+HOTSPOT_DURATION, HOTSPOT_BURST = 10.0, (2.0, 4.0)
+#: past this point phase 13's comparison runs route SIM_CUT_REQUESTS
+#: requests each (cut after the Qwen2-7B depth and phase 14's requests)
+SIM_CUT_AFTER_S, SIM_CUT_REQUESTS = 750.0, 500
 #: requests per trace, load as a share of the trace's estimated capacity,
 #: the scheduling tick arrivals are rounded to (so that same-time waves
 #: form), and the traces' seed
@@ -1839,27 +1868,77 @@ def sim_kv_capacity(spec):
         f"weights) / {spec.kv_bytes_per_token} B of KV per token")
 
 
-def sim_trace(family, spec, n_req):
-    """The first ``n_req`` requests of ``family`` at SIM_LOAD x its
-    estimated capacity on SIM_INSTANCES instances (estimated on a
-    300-second draw of the family), arrivals rounded to SIM_TICK and
-    re-sorted (stably: a tick keeps its requests in rid order).  Returns
-    (trace, qps)."""
+def _on_tick(trace):
+    """Arrivals rounded to SIM_TICK and re-sorted (stably: a tick keeps
+    its requests in rid order)."""
+    for r in trace:
+        r.arrival = round(r.arrival / SIM_TICK) * SIM_TICK
+    trace.sort(key=lambda r: r.arrival)
+    return trace
+
+
+def sim_qps(family, spec):
+    """SIM_LOAD x ``family``'s estimated capacity on SIM_INSTANCES
+    instances (estimated on a 300-second draw of the family)."""
     from repro_torch.workloads.traces import (estimate_capacity_qps,
                                               make_trace)
     probe = make_trace(family, qps=20.0, duration=300.0, seed=SIM_SEED)
-    qps = SIM_LOAD * estimate_capacity_qps(spec, probe, SIM_INSTANCES)
+    return SIM_LOAD * estimate_capacity_qps(spec, probe, SIM_INSTANCES)
+
+
+def sim_trace(family, spec, n_req):
+    """The first ``n_req`` requests of ``family`` at ``sim_qps``,
+    arrivals on the tick.  Returns (trace, qps)."""
+    from repro_torch.workloads.traces import make_trace
+    qps = sim_qps(family, spec)
     duration = n_req / qps
     trace = make_trace(family, qps=qps, duration=duration, seed=SIM_SEED)
     while len(trace) < n_req:
         duration *= 1.5
         trace = make_trace(family, qps=qps, duration=duration,
                            seed=SIM_SEED)
-    trace = trace[:n_req]
-    for r in trace:
-        r.arrival = round(r.arrival / SIM_TICK) * SIM_TICK
-    trace.sort(key=lambda r: r.arrival)
-    return trace, qps
+    return _on_tick(trace[:n_req]), qps
+
+
+def hotspot_trace(spec, n_req):
+    """Fig. 21's trace: the first ``n_req`` requests of
+    ``make_hotspot_trace`` at the agent family's ``sim_qps`` (as the
+    reference's figures size "hotspot"), arrivals on the tick.  Returns
+    (trace, qps)."""
+    from repro_torch.workloads.traces import make_hotspot_trace
+    qps = sim_qps("agent", spec)
+    start, length = HOTSPOT_BURST
+    trace = make_hotspot_trace(qps=qps, duration=HOTSPOT_DURATION,
+                               seed=SIM_SEED, burst_start=start,
+                               burst_len=length)
+    if len(trace) < n_req:
+        raise AssertionError(f"the hotspot trace holds {len(trace)} "
+                             f"requests, fewer than {n_req}")
+    return _on_tick(trace[:n_req]), qps
+
+
+def sim_policy(name, spec):
+    """A policy of phase 13 by name: ``make_policy``'s names, llm-d and
+    PolyServe with PREDICTOR_ERROR, ``lmetric+detector`` (§5.2's
+    detector) and ``lmetric[cost]`` (the "cost" load indicator)."""
+    from repro_torch.core import (HotspotDetector, LatencyModel,
+                                  LMetricPolicy, make_policy)
+    if name in ("llm-d", "polyserve"):
+        return make_policy(name, latency_model=LatencyModel(
+            spec, error_std=PREDICTOR_ERROR))
+    if name == "lmetric+detector":
+        return LMetricPolicy(detector=HotspotDetector())
+    if name == "lmetric[cost]":
+        return LMetricPolicy(load_indicator="cost",
+                             latency_model=LatencyModel(spec))
+    return make_policy(name)
+
+
+def detector_counts(policy):
+    """(Eq. 2 checks, violations, activations) of a detector run."""
+    det = policy.detector
+    return (len(det.history), sum(1 for h in det.history if not h["eq2"]),
+            sum(1 for e in det.events if e["event"] == "activate"))
 
 
 def wave_sizes(trace):
@@ -1873,16 +1952,37 @@ def _finished(done):
             for r in done]
 
 
-def sim_path(device="cuda", n_req=SIM_REQUESTS):
+def multi_waves(trace):
+    """The same-tick groups of two requests or more: the waves a device
+    policy routes through ``route_score``."""
+    return sum(c for k, c in wave_sizes(trace).items() if k > 1)
+
+
+def sim_path(device="cuda", n_req=SIM_REQUESTS, n_new=None):
     """Phase 13: ``ClusterSim`` on SIM_INSTANCES instances with the
-    Qwen2-7B spec on the port's H100 profile, every (trace, policy) of
-    SIM_TRACES x SIM_POLICIES, then ``PDDisaggSim`` with PD_PREFILL
-    prefill and PD_DECODE decode instances on the chatbot trace.  Each
-    run counts ``route_score`` launches from zero; every run must finish
-    every request and launch once per wave of two or more (none on the
-    CPU); the lmetric chatbot run and the PD run must equal their runs
-    with the mirror on the CPU, and the PD run its request-by-request
-    routing.  Returns the numbers to print.
+    Qwen2-7B spec on the port's H100 profile.
+
+    * Fig. 22: every (trace, policy) of SIM_TRACES x SIM_POLICIES, then
+      ``PDDisaggSim`` with PD_PREFILL prefill and PD_DECODE decode
+      instances on the chatbot trace;
+    * Fig. 20: ``lmetric+detector`` on every trace of SIM_TRACES;
+    * Fig. 21: the hotspot trace (``hotspot_trace``) under lmetric,
+      ``lmetric+detector`` and vllm;
+    * Fig. 26: the chatbot trace under preble and polyserve; the coder
+      trace under ``lmetric[cost]``; the agent trace under
+      session-affinity.
+
+    Each run counts ``route_score`` launches from zero and must finish
+    every request; a DEVICE_POLICIES run launches once per wave of two
+    or more (none on the CPU) and its pipeline counts as many waves, a
+    host-only run launches nothing and its pipeline counts no wave.  The
+    lmetric chatbot run and the PD run must equal their runs with the
+    mirror on the CPU, and the PD run its request-by-request routing; a
+    detector run that never activates must equal the lmetric run of its
+    trace, and the hotspot detector run its run with the mirror on the
+    CPU (finished tuples and detector counts).  The runs of BASE_RUNS
+    and PD route ``n_req`` requests, the comparison runs ``n_new``
+    (default ``n_req``).  Returns the numbers to print.
 
     ``device="cpu"`` rehearses the phase with the plain version of
     ``route_score`` (no launches are counted there)."""
@@ -1890,9 +1990,9 @@ def sim_path(device="cuda", n_req=SIM_REQUESTS):
     from repro_torch.cluster.pd_disagg import PDDisaggSim
     from repro_torch.cluster.simulator import ClusterSim
     from repro_torch.configs import get_config
-    from repro_torch.core import Router, make_policy, spec_from_config
+    from repro_torch.core import Router, spec_from_config
     from repro_torch.kernels import route_score as rs
-    on_card = device != "cpu"
+    n_new = n_req if n_new is None else n_new
     spec0 = spec_from_config(get_config("qwen2_7b"))
     kv, how = sim_kv_capacity(spec0)
     spec = spec_from_config(get_config("qwen2_7b"), kv_capacity_tokens=kv)
@@ -1912,57 +2012,77 @@ def sim_path(device="cuda", n_req=SIM_REQUESTS):
                                  f"for {want_waves} waves of two or more")
         return sim, done, wall, launches
 
-    out = {"kv": kv, "how": how, "spec": spec, "runs": [], "launches": 0}
+    def sim_run(name, trace, dev=device):
+        """One ClusterSim run of policy ``name``; checks launches and the
+        pipeline's wave count against the policy's kind."""
+        want = multi_waves(trace) if name in DEVICE_POLICIES else 0
+
+        def cluster(d):
+            return ClusterSim(Router(sim_policy(name, spec), SIM_INSTANCES,
+                                     kv_capacity_tokens=kv, device=d),
+                              spec)
+        sim, done, wall, launches = run(cluster, trace, dev, want)
+        if sim.router.pipeline.waves != want:
+            raise AssertionError(f"{name}: {sim.router.pipeline.waves} "
+                                 f"device waves, {want} expected")
+        return sim, done, wall, launches
+
+    out = {"kv": kv, "how": how, "spec": spec, "runs": [], "new_runs": [],
+           "launches": 0}
+
+    def record(family, name, trace, qps, sim, done, wall, launches,
+               same_cpu=None, new=True, **extra):
+        out["launches"] += launches
+        (out["new_runs"] if new else out["runs"]).append({
+            "what": f"{family} {name}", "family": family, "policy": name,
+            "qps": qps, "span": trace[-1].arrival - trace[0].arrival,
+            "summary": summarize(done, per_family_slo=True),
+            "sizes": wave_sizes(trace), "waves": multi_waves(trace),
+            "launches": launches, "wall": wall,
+            "stages": (sim.router.stage_stats()
+                       if hasattr(sim, "router") else None),
+            "same_cpu": same_cpu, "extra": extra})
+
     t_phase = time.perf_counter()
-    traces = {}
+    traces, lmetric = {}, {}
     for family in SIM_TRACES:
-        trace, qps = sim_trace(family, spec, n_req)
-        sizes = wave_sizes(trace)
-        multi = sum(c for k, c in sizes.items() if k > 1)
-        if not multi:
+        full, qps = sim_trace(family, spec, n_req)
+        if not multi_waves(full):
             raise AssertionError(f"{family}: no arrival wave of two or "
                                  f"more, so no launch to count")
-        traces[family] = (trace, multi)
+        traces[family] = (full, qps)
         for policy in SIM_POLICIES:
-            def cluster(dev, policy=policy):
-                return ClusterSim(Router(make_policy(policy), SIM_INSTANCES,
-                                         kv_capacity_tokens=kv, device=dev),
-                                  spec)
-            sim, done, wall, launches = run(cluster, trace, device, multi)
-            if sim.router.pipeline.waves != multi:
-                raise AssertionError(f"{sim.router.pipeline.waves} device "
-                                     f"waves for {multi} waves of two or "
-                                     f"more")
+            new = (family, policy) not in BASE_RUNS
+            trace = full[:n_new] if new else full
+            sim, done, wall, launches = sim_run(policy, trace)
             same_cpu = None
+            if policy == "lmetric":
+                lmetric[family] = (len(trace), _finished(done))
             if family == "chatbot" and policy == "lmetric":
-                _, plain, _, _ = run(cluster, trace, "cpu", multi)
+                _, plain, _, _ = sim_run(policy, trace, "cpu")
                 if _finished(plain) != _finished(done):
                     raise AssertionError("ClusterSim lmetric chatbot: the "
                                          "card's run != the CPU's")
                 same_cpu = True
                 # phase 14 runs the same trace on a sharded router
-                out["flat_chatbot"] = (trace, multi, _finished(done))
+                out["flat_chatbot"] = (trace, multi_waves(trace),
+                                       _finished(done))
                 # the run's router and its largest wave, for the timing
                 # of one wave's score stage (``sim_wave_time``)
                 at = collections.Counter(r.arrival for r in trace)
                 t_max = max(at, key=at.get)
                 out["timing"] = (sim.router, [r for r in trace
                                               if r.arrival == t_max])
-            out["launches"] += launches
-            out["runs"].append({
-                "what": f"{family} {policy}", "qps": qps,
-                "span": trace[-1].arrival - trace[0].arrival,
-                "summary": summarize(done, per_family_slo=True),
-                "sizes": sizes, "waves": multi, "launches": launches,
-                "wall": wall, "stages": sim.router.stage_stats(),
-                "same_cpu": same_cpu})
+            record(family, policy, trace, qps, sim, done, wall, launches,
+                   same_cpu, new)
 
     class Sequential(PDDisaggSim):
         def _on_arrivals(self, reqs):
             for r in reqs:
                 self._on_arrival(r)
 
-    trace, multi = traces["chatbot"]
+    trace, qps = traces["chatbot"]
+    multi = multi_waves(trace)
 
     def pd(dev, cls=PDDisaggSim):
         return cls(PD_PREFILL, PD_DECODE, spec, kv_capacity_tokens=kv,
@@ -1975,14 +2095,67 @@ def sim_path(device="cuda", n_req=SIM_REQUESTS):
     if _finished(seq) != _finished(done):
         raise AssertionError("PDDisaggSim: waves != request-by-request "
                              "routing")
-    out["launches"] += launches
-    out["runs"].append({
-        "what": f"chatbot PD {PD_PREFILL}+{PD_DECODE}",
-        "qps": out["runs"][0]["qps"], "span": out["runs"][0]["span"],
-        "summary": summarize(done, per_family_slo=True),
-        "sizes": wave_sizes(trace), "waves": multi, "launches": launches,
-        "wall": wall, "stages": None, "same_cpu": True})
+    record("chatbot", f"PD {PD_PREFILL}+{PD_DECODE}", trace, qps, sim, done,
+           wall, launches, True, False)
+
+    # ---- Fig. 20: the detector on the benign traces ----------------------
+    for family in SIM_TRACES:
+        full, qps = traces[family]
+        trace = full[:n_new]
+        sim, done, wall, launches = sim_run("lmetric+detector", trace)
+        checks, viol, act = detector_counts(sim.router.policy)
+        same = None
+        if not act:
+            # nothing was filtered: the host path decides as the device
+            # plan of the lmetric run on the same requests did
+            if lmetric[family][0] != len(trace):
+                _, lm_done, _, lm_launches = sim_run("lmetric", trace)
+                out["launches"] += lm_launches
+                lmetric[family] = (len(trace), _finished(lm_done))
+            if _finished(done) != lmetric[family][1]:
+                raise AssertionError(f"{family}: the detector run never "
+                                     f"activated, yet differs from the "
+                                     f"lmetric run")
+            same = True
+        record(family, "lmetric+detector", trace, qps, sim, done, wall,
+               launches, checks=checks, violations=viol, activations=act,
+               same_lmetric=same)
+
+    # ---- Fig. 21: the hotspot trace --------------------------------------
+    hot, qps = hotspot_trace(spec, n_new)
+    for name in ("lmetric", "lmetric+detector", "vllm"):
+        sim, done, wall, launches = sim_run(name, hot)
+        extra, same_cpu = {}, None
+        if name == "lmetric+detector":
+            cpu, cpu_done, _, _ = sim_run(name, hot, "cpu")
+            counts = detector_counts(sim.router.policy)
+            if (detector_counts(cpu.router.policy) != counts
+                    or _finished(cpu_done) != _finished(done)):
+                raise AssertionError("hotspot lmetric+detector: the card's "
+                                     "run != the CPU's")
+            same_cpu = True
+            extra = dict(zip(("checks", "violations", "activations"),
+                             counts))
+            extra["burst"] = sum(1 for r in hot if r.family == "hotspot")
+        record("hotspot", name, hot, qps, sim, done, wall, launches,
+               same_cpu, **extra)
+
+    # ---- Fig. 26, the cost indicator, session affinity -------------------
+    for family, name in (("chatbot", "preble"), ("chatbot", "polyserve"),
+                         ("coder", "lmetric[cost]"),
+                         ("agent", "session-affinity")):
+        full, qps = traces[family]
+        trace = full[:n_new]
+        sim, done, wall, launches = sim_run(name, trace)
+        pol = sim.router.policy
+        extra = {}
+        if name == "preble":
+            extra["branch_counts"] = dict(pol.branch_counts)
+        if name == "session-affinity":
+            extra["pins"] = len(pol.pins)
+        record(family, name, trace, qps, sim, done, wall, launches, **extra)
     out["wall"] = time.perf_counter() - t_phase
+    out["new_wall"] = sum(r["wall"] for r in out["new_runs"])
     return out
 
 
@@ -2089,6 +2262,32 @@ def sim_step_times(torch, spec, served):
     return out
 
 
+def _sim_line(r):
+    """One phase-13 run's line."""
+    s, st, x = r["summary"], r["stages"], r["extra"]
+    if r["policy"] not in DEVICE_POLICIES and st is not None:
+        score = "host-only policy: no device wave"
+    elif st:
+        score = (f"score stage {st['score_us']:.1f} us/wave, walk "
+                 f"{st['walk_us']:.1f}, commit {st['commit_us']:.1f}")
+    else:
+        score = "no stage timings (route_wave called directly)"
+    notes = "".join(f" | {k} {v}" for k, v in x.items()
+                    if k not in ("same_lmetric",))
+    if x.get("same_lmetric"):
+        notes += " | == the lmetric run (device-planned)"
+    return (f"{r['what']}: {s['n']} finished at {r['qps']:.2f} "
+            f"req/s offered over {r['span']:.2f} s | TTFT mean "
+            f"{s['ttft_mean'] * 1e3:.2f} ms p50 {s['ttft_p50'] * 1e3:.2f}"
+            f" p95 {s['ttft_p95'] * 1e3:.2f} p99 {s['ttft_p99'] * 1e3:.2f}"
+            f" | TPOT mean {s['tpot_mean'] * 1e3:.3f} ms p99 "
+            f"{s['tpot_p99'] * 1e3:.3f} | KV$ hit {s['kv_hit_ratio']:.4f} "
+            f"| SLO {s['slo_attainment']:.4f} | waves of >= 2: "
+            f"{r['waves']}, sizes {r['sizes']} | route_score launches "
+            f"{r['launches']} | host wall {r['wall']:.2f} s, {score}"
+            + notes + (" | == CPU run" if r["same_cpu"] else ""))
+
+
 def report_sim(gpu, sim, steps=None, wave=None):
     """Print phase 13's numbers."""
     tag = f"[{gpu}] simulation:"
@@ -2100,20 +2299,40 @@ def report_sim(gpu, sim, steps=None, wave=None):
           f"{sim['how']}; arrivals rounded to {SIM_TICK * 1e3:.0f} ms; "
           f"times are simulated; SLO per family (core/types.py)")
     for r in sim["runs"]:
-        s, st = r["summary"], r["stages"]
-        score = (f"score stage {st['score_us']:.1f} us/wave, walk "
-                 f"{st['walk_us']:.1f}, commit {st['commit_us']:.1f}"
-                 if st else "no stage timings (route_wave called directly)")
-        print(f"{tag} {r['what']}: {s['n']} finished at {r['qps']:.2f} "
-              f"req/s offered over {r['span']:.2f} s | TTFT mean "
-              f"{s['ttft_mean'] * 1e3:.2f} ms p50 {s['ttft_p50'] * 1e3:.2f}"
-              f" p99 {s['ttft_p99'] * 1e3:.2f} | TPOT mean "
-              f"{s['tpot_mean'] * 1e3:.3f} ms p99 {s['tpot_p99'] * 1e3:.3f}"
-              f" | KV$ hit {s['kv_hit_ratio']:.4f} | SLO "
-              f"{s['slo_attainment']:.4f} | waves of >= 2: {r['waves']}, "
-              f"sizes {r['sizes']} | route_score launches {r['launches']} "
-              f"| host wall {r['wall']:.2f} s, {score}"
-              + (" | == CPU run" if r["same_cpu"] else ""))
+        print(f"{tag} {_sim_line(r)}")
+    new = sim["new_runs"]
+    print(f"{tag} comparison runs ({len(new)}: the paper's comparison "
+          f"policies, the hotspot detector, the cost indicator and "
+          f"session affinity), {new[0]['summary']['n']} requests each:")
+    for r in new:
+        print(f"{tag} {_sim_line(r)}")
+    every = sim["runs"] + new
+    for family in SIM_TRACES:
+        rows = {r["policy"]: r for r in every if r["family"] == family
+                and r["policy"] in SIM_POLICIES}
+        lm = rows["lmetric"]["summary"]
+        vs = ", ".join(
+            f"{p} {rows[p]['summary']['ttft_mean'] * 1e3:.2f} ms "
+            f"({(lm['ttft_mean'] / rows[p]['summary']['ttft_mean'] - 1):+.1%}"
+            f", {rows[p]['summary']['n']} requests)"
+            for p in SIM_POLICIES if p != "lmetric")
+        print(f"{tag} Fig. 22, {family}: lmetric TTFT mean "
+              f"{lm['ttft_mean'] * 1e3:.2f} ms ({lm['n']} requests) "
+              f"against {vs}")
+    for r in new:
+        x = r["extra"]
+        if "activations" in x:
+            print(f"{tag} Fig. {21 if r['family'] == 'hotspot' else 20}, "
+                  f"{r['family']}: Eq. 2 checks {x['checks']}, violations "
+                  f"{x['violations']}, activations {x['activations']}")
+    hot = {r["policy"]: r["summary"] for r in new
+           if r["family"] == "hotspot"}
+    print(f"{tag} Fig. 21, hotspot: " + "; ".join(
+        f"{p} TTFT mean {s['ttft_mean'] * 1e3:.2f} ms p95 "
+        f"{s['ttft_p95'] * 1e3:.2f}, TPOT p99 {s['tpot_p99'] * 1e3:.3f} ms"
+        for p, s in hot.items()))
+    print(f"{tag} host wall of the comparison runs {sim['new_wall']:.2f} s "
+          f"(of {sim['wall']:.2f} s for the phase's runs)")
     if wave is not None:
         k = wave["k"]
         print(f"{tag} one wave's score stage (lmetric chatbot router after "
@@ -2730,7 +2949,13 @@ def main() -> int:
     del results, lm, r
     gc.collect()
     t0 = time.perf_counter()
-    sim = sim_path()
+    n_new = SIM_REQUESTS
+    if time.perf_counter() - t_start > SIM_CUT_AFTER_S:
+        n_new = SIM_CUT_REQUESTS
+        print(f"simulation: the comparison runs cut from {SIM_REQUESTS} to "
+              f"{n_new} requests each to stay within the time limit "
+              f"(instances stay {SIM_INSTANCES})")
+    sim = sim_path(n_new=n_new)
     wave = sim_wave_time(torch, rs, *sim["timing"])
     steps = sim_step_times(torch, sim["spec"], served)
     report_sim(gpu, sim, steps, wave)

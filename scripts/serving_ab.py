@@ -37,9 +37,15 @@ path's wave (k = 64 over 16384 instances) and the simulator's waves (k =
 calls only ``route_wave_device``, ``route_wave`` and ``_pack_aux``, as
 every tree has them); ``--profile ARCH,...`` traces
 each tree's decode steps and prefill chunks of the named models
-(``chip_smoke.profile_steps``); both run THIS checkout's timing code
-against each tree's own package and kernels, so that an older tree is
-measured the same way:
+(``chip_smoke.profile_steps``); ``--routing`` runs each tree's routing
+path (``chip_smoke.main_path``: 2000 hotspot requests over 16384
+instances in waves of 64, route_batch and sequential ``route()`` under
+lmetric and vllm, building only ``route_score``) and prints its walk /
+score / commit µs per wave and µs per decision (and, where the tree has
+the routed-window rings, their width after the run, one ring write's µs
+and one doubling's ms); all three run THIS
+checkout's timing code against each tree's own package and kernels, so
+that an older tree is measured the same way:
 
     python3 scripts/serving_ab.py --kernels build/ab/parent . . build/ab/parent
 """
@@ -85,8 +91,34 @@ import chip_smoke as c
 sys.path.insert(0, os.path.join(tree, "src"))
 from repro_torch.kernels import _build
 assert os.path.abspath(_build.__file__).startswith(tree), _build.__file__
-_build.build(c.KERNELS)
-if mode == "kernels":
+_build.build(("route_score",) if mode == "routing" else c.KERNELS)
+if mode == "routing":
+    import time
+    import numpy as np
+    res, _ = c.main_path(c.N_INST, c.MAIN_REQUESTS, "cuda")
+    out = {}
+    for name, r in res.items():
+        st = r["router"].stage_stats()
+        out[name] = {k: st[k] for k in ("walk_us", "score_us", "commit_us",
+                                        "waves")}
+        out[name].update({k: r[k] for k in ("batch_us_per_decision",
+                                            "route_us_per_decision")})
+        f = r["router"].factory
+        if hasattr(f, "log_routed"):
+            # the routed-window rings: their width after the run (256 =
+            # never doubled), one ring write, and one doubling
+            out[name]["ring_cap"] = int(f._log_t.shape[1])
+            ts = []
+            for i in range(2000):
+                t0 = time.perf_counter_ns()
+                f.log_routed(i % 64, 1e6, 1)
+                ts.append(time.perf_counter_ns() - t0)
+            out[name]["log_routed_us"] = float(np.median(ts)) / 1e3
+            t0 = time.perf_counter()
+            f._grow_log()
+            out[name]["grow_ms"] = (time.perf_counter() - t0) * 1e3
+    print("RESULT " + json.dumps(out))
+elif mode == "kernels":
     from repro_torch.kernels import route_score as rs
     t = c.time_recurrent_kernels(torch)
     t.update(c.time_route_kernels(torch, rs))
@@ -206,6 +238,10 @@ def main():
                     help="time each tree's rglru_scan, mlstm_cell and "
                          "route_score with this checkout's timing code "
                          "instead of serving")
+    ap.add_argument("--routing", action="store_true",
+                    help="run each tree's routing path (chip_smoke's "
+                         "phase 3) with this checkout's code instead of "
+                         "serving; prints its stage times")
     ap.add_argument("--profile", metavar="ARCH[,ARCH...]",
                     help="trace each tree's steps of these models with "
                          "this checkout's --profile code instead of "
@@ -215,8 +251,8 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}")
-    mode = ("kernels" if args.kernels else
-            "profile" if args.profile else "serving")
+    mode = ("kernels" if args.kernels else "routing" if args.routing
+            else "profile" if args.profile else "serving")
     for root in args.trees:
         out = run_tree(root, args.arch, mode,
                        args.profile.split(",") if args.profile else ())

@@ -15,8 +15,11 @@ _EXPORTS = {
     "indicators": ("IndicatorFactory", "InstanceState", "resolve_device"),
     "pipeline": ("RoutingPipeline",),
     "latency_model": ("EngineSpec", "LatencyModel", "spec_from_config"),
-    "policies": ("FilterKVPolicy", "JSQPolicy", "LinearKVPolicy",
-                 "LMetricPolicy", "Policy", "make_policy"),
+    "policies": ("DynamoPolicy", "FilterKVPolicy", "JSQPolicy",
+                 "LinearKVPolicy", "LMetricPolicy", "Policy",
+                 "PolyServePolicy", "PreblePolicy", "SessionAffinityPolicy",
+                 "SimulationPolicy", "make_policy"),
+    "hotspot": ("HotspotDetector",),
     "router": ("Router", "commit_wave_plan"),
     "state": ("router_from_numpy_state",),
 }

@@ -60,9 +60,16 @@ exactly but not a mid-wave eviction; the router watches this counter
 and falls back to sequential host routing the moment it moves, and the
 pipeline's speculative walks are voided by it.
 
+Preble's routed-window rings: every committed decision appends
+``(now, prompt_len - hit)`` to its instance's row of two ``(n, cap)``
+ring matrices (``log_routed``); ``window_stats`` trims every row's
+leading run of entries older than the window and sums what is left in
+one vectorized pass.  A full row is first trimmed to ``LOG_HORIZON_S``
+and the whole matrix doubles only if that frees nothing.
+
 Left out of this port so far: heterogeneous-fleet columns (ROADMAP
-Queue A item 6), instance failure and the Preble routed-window rings
-(item 7); their entry points raise ``NotImplementedError``.
+Queue A item 6) and instance failure (item 7); their entry points raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -148,6 +155,12 @@ class InstanceState:
         self._f.mark_dirty(self.iid)
 
     @property
+    def routed_log(self) -> List:
+        """(time, p_tokens) of windowed routed requests, oldest first,
+        read from the factory's ring."""
+        return self._f.routed_window(self.iid)
+
+    @property
     def bs(self) -> int:
         return self.r_bs + self.q_bs
 
@@ -167,6 +180,7 @@ class InstanceState:
         f.queued_prefill_tokens[i] += req.prompt_len - hit
         f.total_tokens[i] += req.prompt_len
         f.mark_dirty(i)
+        f.log_routed(i, now, req.prompt_len - hit)
 
     def on_prefill_progress(self, n_tokens: int):
         f, i = self._f, self.iid
@@ -206,6 +220,9 @@ class InstanceState:
         f.total_tokens[i] = left if left > 0 else 0
         f.mark_dirty(i)
 
+    def trim_log(self, now: float, window: float):
+        self._f.trim_routed(self.iid, now - window)
+
 
 class _WaveHandle:
     """In-flight wave walk: everything ``wave_collect`` needs to finish
@@ -230,6 +247,8 @@ class _WaveHandle:
 
 
 class IndicatorFactory:
+    _LOG_CAP0 = 256   # initial per-instance routed-window ring capacity
+
     def __init__(self, n_instances: int, kv_capacity_tokens: int = 1 << 62,
                  block_size: int = 64, exact_only: bool = False,
                  n_shards: int = 1, parallel_walks: bool = False,
@@ -288,6 +307,12 @@ class IndicatorFactory:
         # (per unique prompt), surfaced by Router.mean_walk_us
         self.walk_ns = 0
         self.walks = 0
+        # Preble routed-window rings (time, p_tokens), one row per instance
+        cap = self._LOG_CAP0
+        self._log_t = np.zeros((n_instances, cap), dtype=np.float64)
+        self._log_p = np.zeros((n_instances, cap), dtype=np.int64)
+        self._log_start = np.zeros(n_instances, dtype=np.int64)
+        self._log_len = np.zeros(n_instances, dtype=np.int64)
         # speculative-walk insert capture (see begin_insert_capture)
         self._capture = None
         self._capture_ev0 = 0
@@ -431,10 +456,6 @@ class IndicatorFactory:
     # ---- paths of later slices -------------------------------------------
     def on_instance_failed(self, iid: int):
         raise not_ported("instance failure", 7, "the router's churn hooks")
-
-    def window_stats(self, now: float, window: float, trim: bool = True):
-        raise not_ported("the routed-window rings", 7,
-                         "Preble's windowed fallback")
 
     def feasible_mask(self, requirement: str):
         raise not_ported("capability masks", 6, "core/fleet.py")
@@ -834,3 +855,82 @@ class IndicatorFactory:
         breath."""
         return self.wave_collect(self.wave_submit(reqs),
                                  with_lcp=with_lcp)
+
+    # ---- Preble routed-window rings --------------------------------------
+    #: entries older than this are expendable when a ring fills: every
+    #: windowed consumer (Preble's 3-minute fallback) looks back far
+    #: less, and horizon-trimming a full row beats doubling the whole
+    #: (n, cap) matrix for one hot instance
+    LOG_HORIZON_S = 3600.0
+
+    def log_routed(self, iid: int, t: float, p_tokens: int):
+        if self._log_len[iid] == self._log_t.shape[1]:
+            self.trim_routed(iid, t - self.LOG_HORIZON_S)
+        if self._log_len[iid] == self._log_t.shape[1]:
+            self._grow_log()
+        cap = self._log_t.shape[1]
+        idx = (self._log_start[iid] + self._log_len[iid]) % cap
+        self._log_t[iid, idx] = t
+        self._log_p[iid, idx] = p_tokens
+        self._log_len[iid] += 1
+
+    def _grow_log(self):
+        cap = self._log_t.shape[1]
+        nt = np.zeros((self.n, 2 * cap), dtype=np.float64)
+        npv = np.zeros((self.n, 2 * cap), dtype=np.int64)
+        idx = (self._log_start[:, None] + np.arange(cap)[None, :]) % cap
+        rows = np.arange(self.n)[:, None]
+        nt[:, :cap] = self._log_t[rows, idx]
+        npv[:, :cap] = self._log_p[rows, idx]
+        self._log_t, self._log_p = nt, npv
+        self._log_start[:] = 0
+
+    def _log_view(self):
+        """(times, ptokens, valid) in logical (oldest-first) order."""
+        cap = self._log_t.shape[1]
+        idx = (self._log_start[:, None] + np.arange(cap)[None, :]) % cap
+        rows = np.arange(self.n)[:, None]
+        valid = np.arange(cap)[None, :] < self._log_len[:, None]
+        return self._log_t[rows, idx], self._log_p[rows, idx], valid
+
+    def trim_routed(self, iid: int, cut: float):
+        """Drop the leading run of entries older than ``cut`` (only the
+        front is scanned: a later entry older than ``cut`` stays)."""
+        cap = self._log_t.shape[1]
+        start, ln = int(self._log_start[iid]), int(self._log_len[iid])
+        k = 0
+        while k < ln and self._log_t[iid, (start + k) % cap] < cut:
+            k += 1
+        if k:
+            self._log_start[iid] = (start + k) % cap
+            self._log_len[iid] = ln - k
+
+    def routed_window(self, iid: int) -> List:
+        """Instance ``iid``'s ring as ``[(time, p_tokens), ...]``, oldest
+        first."""
+        cap = self._log_t.shape[1]
+        start, ln = int(self._log_start[iid]), int(self._log_len[iid])
+        idx = (start + np.arange(ln)) % cap
+        return [(float(t), int(p)) for t, p in
+                zip(self._log_t[iid, idx], self._log_p[iid, idx])]
+
+    def window_stats(self, now: float, window: float,
+                     trim: bool = True):
+        """Vectorized trim + (sum p_tokens, count) over every instance's
+        window: Preble's fallback in one pass.  ``trim=False`` computes
+        the same stats without advancing the ring cursors (the
+        side-effect-free inspection of ``scores_batch``)."""
+        cut = now - window
+        times, pts, valid = self._log_view()
+        drop = np.cumprod(valid & (times < cut), axis=1).sum(axis=1)
+        if drop.any():
+            if trim:
+                cap = self._log_t.shape[1]
+                self._log_start[:] = (self._log_start + drop) % cap
+                self._log_len[:] = self._log_len - drop
+            keep = valid & (np.arange(times.shape[1])[None, :]
+                            >= drop[:, None])
+        else:
+            keep = valid
+        return (np.where(keep, pts, 0).sum(axis=1),
+                keep.sum(axis=1).astype(np.int64))

@@ -155,6 +155,12 @@ class Router:
         self.policy.on_finish(iid, req)
 
     # ------------------------------------------------------------------
+    def session_pin(self, session_id: int) -> Optional[int]:
+        """Session-affinity hint: the instance holding this session's
+        KV$ lineage, if the policy tracks pins (None otherwise)."""
+        return self.policy.session_pin(session_id)
+
+    # ------------------------------------------------------------------
     def mean_decision_us(self) -> float:
         if not self.decision_ns:
             return 0.0

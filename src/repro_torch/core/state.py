@@ -1,8 +1,9 @@
 """Carry a router's state across from plain numpy/list data.
 
 For this system the state is what weights are to a model: the indicator
-columns, each instance's KV$ block chains and the policy's tie counter
-decide every later routing decision.  ``router_from_numpy_state`` builds
+columns, each instance's KV$ block chains, its routed-window ring (which
+Preble's fallback reads) and the policy's tie counter decide every later
+routing decision.  ``router_from_numpy_state`` builds
 a port ``Router`` from that state as any other implementation can
 export it — for instance the reference ``repro.core`` router's factory
 arrays and ``RadixKVIndex.chains()`` — without importing that
@@ -10,7 +11,7 @@ implementation.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -23,14 +24,20 @@ COLUMNS = ("r_bs", "q_bs", "queued_prefill_tokens", "total_tokens")
 def router_from_numpy_state(policy: Policy, n: int,
                             arrays: Mapping[str, np.ndarray],
                             chains: Sequence[Sequence[Sequence[int]]],
-                            tie: int, **router_kw) -> Router:
+                            tie: int,
+                            routed: Optional[Sequence[
+                                Sequence[Tuple[float, int]]]] = None,
+                            **router_kw) -> Router:
     """A port ``Router`` over ``n`` instances holding the given state.
 
     ``arrays`` maps each of ``COLUMNS`` to an (n,) integer array;
     ``chains[i]`` lists instance ``i``'s root→leaf block chains, which
     are inserted into its radix tree in the order given (the aggregated
     index follows through the insert hooks); ``tie`` becomes the
-    policy's round-robin tie counter.  ``router_kw`` goes to ``Router``
+    policy's round-robin tie counter.  ``routed[i]``, if given, lists
+    instance ``i``'s routed-window entries ``(t, p_tokens)`` oldest first
+    (the reference's ``factory.routed_window(i)``); they are logged into
+    its ring in that order.  ``router_kw`` goes to ``Router``
     (``kv_capacity_tokens``, ``block_size``, ``device``, ...).
 
     LRU recency is rebuilt from insertion order, not copied: after the
@@ -41,6 +48,8 @@ def router_from_numpy_state(policy: Policy, n: int,
     """
     if len(chains) != n:
         raise ValueError(f"chains lists {len(chains)} instances, not {n}")
+    if routed is not None and len(routed) != n:
+        raise ValueError(f"routed lists {len(routed)} instances, not {n}")
     router = Router(policy, n, **router_kw)
     f = router.factory
     for i, inst_chains in enumerate(chains):
@@ -53,6 +62,9 @@ def router_from_numpy_state(policy: Policy, n: int,
             raise ValueError(f"{name} must have shape ({n},), "
                              f"got {col.shape}")
         getattr(f, name)[:] = col
+    for i, window in enumerate(routed or ()):
+        for t, p_tokens in window:
+            f.log_routed(i, float(t), int(p_tokens))
     f.mark_dirty()
     policy._tie_n = int(tie)
     return router

@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax_or_repro():
                 "kernels.mlstm_cell", "models.recurrent",
                 "configs.recurrentgemma_9b", "configs.xlstm_350m",
                 "core.prefix_index", "core.faults", "core.shard_backends",
-                "core.sharded_index"):
+                "core.sharded_index", "core.hotspot"):
         assert f"repro_torch.{mod}" in names, mod
 
 

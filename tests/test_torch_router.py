@@ -305,13 +305,12 @@ def test_scores_batch_matches_reference(traces):
 
 
 def test_unported_options_raise():
-    for name in ("dynamo", "preble", "llm-d", "polyserve", "rtb"):
-        with pytest.raises(NotImplementedError):
+    """Only route-then-balance is left to a later slice: it reads the
+    fleet's capability masks (ROADMAP Queue A item 6)."""
+    for name in ("rtb", "route-then-balance"):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP Queue A item 6\)"):
             make_policy(name)
-    with pytest.raises(NotImplementedError):
-        make_policy("lmetric", load_indicator="cost")
-    with pytest.raises(NotImplementedError):
-        make_policy("lmetric", detector=object())
     with pytest.raises(KeyError):
         make_policy("nope")
 

@@ -389,14 +389,13 @@ def test_route_batch_sharded_equals_flat_and_sequential(traces):
 
 
 def test_paths_of_later_slices_raise():
-    """The factory's fleet, instance-failure and routed-window entry
-    points raise ``NotImplementedError`` naming their ROADMAP item."""
+    """The factory's fleet and instance-failure entry points raise
+    ``NotImplementedError`` naming their ROADMAP item."""
     f = tind.IndicatorFactory(4, device="cpu")
     for item, call in ((6, lambda: tind.IndicatorFactory(4, fleet=object(),
                                                           device="cpu")),
                        (6, lambda: f.feasible_mask("qwen2_7b")),
-                       (7, lambda: f.on_instance_failed(1)),
-                       (7, lambda: f.window_stats(0.0, 180.0))):
+                       (7, lambda: f.on_instance_failed(1))):
         with pytest.raises(NotImplementedError,
                            match=rf"ROADMAP Queue A item {item}\)"):
             call()
