@@ -134,12 +134,39 @@ Phases (each raises on failure, so any failure exits nonzero):
    shards, equal to the flat run with speculative walks consumed; and
    the mirror's re-upload of dirty ranges in three spellings
    (``time_mirror``).  None of the process's shared-memory segments and
-   no shard worker may remain.
+   no shard worker may remain;
+15. control plane — on phase 13's profile, KV$ and chatbot trace
+   (``control_path``): the lmetric chatbot run with every obs component
+   on (``make_obs(metrics, trace, provenance)``) must equal phase 13's
+   (tuples, launches) with a provenance record per request and a valid
+   trace, two runs of 500 requests must give byte-identical trace JSON,
+   and the host wall with obs off and on is printed (best of 3 each,
+   beside the reference's 5% budget, not gated); the same run under
+   instance churn (instance 3 fails at 10 s and recovers at 25 s,
+   instance 11 is drained at 30 s and recovers at 40 s): every request
+   finishes, none is scheduled on an instance while it is out, the
+   launches equal the waves of two or more routed while every instance
+   was live (none while one is out), the tuples equal the CPU run's and
+   the index equals a rebuild from the radix trees; the agent trace at 2
+   x its estimated capacity with admission and retraction (== its CPU
+   run) and without (shed, retracted, wasted prefill,
+   ``overload_summary``); ``make_mixed_fleet()`` (8 Qwen3-30B-MoE
+   "fast", 8 Qwen2-7B "slow") on the chatbot trace, every fourth
+   request needing "qwen2_7b", under the hetero lmetric score and
+   route-then-balance (host-only, no infeasible route,
+   ``hardware_class_summary``), and a homogeneous fleet of phase 13's
+   spec, which must equal phase 13's run with its 572 launches; the
+   closed loop (200 mixed chatbot / agent / coder sessions at 1 and 20
+   x ``bench_overload``'s start rates, no control and admission +
+   retraction, the last with a failure, == its CPU run;
+   ``summarize`` with the interference block, ``overload_summary``) and
+   a closed-loop PD run of 100 chatbot sessions.
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed),
 then phase 14's requests, then the requests of each of phase 13's
-comparison runs (never below 500); the recurrent paths keep their width
+comparison runs (never below 500), then phase 15's closed-loop sessions
+(halved); the recurrent paths keep their width
 and depth, no run is dropped, and no path keeps fewer instances.  Shard
 workers are spawned processes that re-import this file as their main
 module, which is why it imports ``torch`` only inside ``main()``.
@@ -2789,6 +2816,517 @@ def rehearse_shards(n=256, n_req=256):
     return ph
 
 
+# ---------------------------------------------------------------------------
+# the control plane (phase 15): observability, instance churn, overload
+# control, heterogeneous fleets and the closed loop, through ClusterSim on
+# phase 13's H100 profile
+# ---------------------------------------------------------------------------
+#: the churn schedule of phase 15's chatbot run: (event, time s, instance)
+CHURN = (("fail", 10.0, 3), ("recover", 25.0, 3), ("drain", 30.0, 11),
+         ("recover", 40.0, 11))
+#: the overload run: the agent trace at this multiple of its estimated
+#: capacity (phase 13 runs it at SIM_LOAD)
+OVERLOAD_MULT = 2.0
+#: obs off / on walls: best of this many runs each, interleaved; the
+#: reference's budget for the enabled bundle (printed, not gated)
+OBS_REPS, OBS_BUDGET = 3, 1.05
+#: requests of each of the two runs whose trace JSON must be identical
+OBS_TRACE_REQUESTS = 500
+#: the closed loop (``bench_overload``'s scenario): sessions per family,
+#: each family's share of the offered load, the share of capacity at
+#: mult 1, the session seed, the start-rate multipliers, and the mult-20
+#: controlled run's failure (fail time, recover time, instance)
+CL_MIX = {"chatbot": 80, "agent": 60, "coder": 60}
+CL_SHARES = {"chatbot": 0.4, "agent": 0.3, "coder": 0.3}
+CL_BASE, CL_SEED, CL_MULTS = 0.75, 11, (1.0, 20.0)
+CL_FAIL = (20.0, 110.0, 3)
+CL_PD_SESSIONS = 100
+#: past this point phase 15 runs CL_CUT of the closed loop's sessions
+#: (never fewer requests in the open-loop runs, never fewer instances)
+CL_CUT_AFTER_S, CL_CUT = 900.0, 0.5
+
+
+class WaveLedger:
+    """Wraps a router's ``route_batch``: per call, the wave's size,
+    whether every instance was live, whether the device plan takes it
+    (the router's own test: two or more requests, the policy's
+    ``batch_supported``, no capability requirement on a fleet) and the
+    ``route_score`` launches it made."""
+
+    def __init__(self, router, rs):
+        self.calls = []
+        inner = router.route_batch
+
+        def route_batch(reqs, now):
+            f = router.factory
+            planned = (len(reqs) > 1 and router.insert_on_route
+                       and router.policy.batch_supported(f)
+                       and not (f.fleet is not None
+                                and any(r.model_requirement
+                                        for r in reqs)))
+            live = router.policy.alive is None
+            n0 = rs.LAUNCHES
+            out = inner(reqs, now)
+            self.calls.append((len(reqs), live, planned, rs.LAUNCHES - n0))
+            return out
+        router.route_batch = route_batch
+
+    def launches(self):
+        return sum(c[3] for c in self.calls)
+
+    def planned(self):
+        """Waves of two or more the device plan took, all instances
+        live (the policy's ``batch_supported`` is False otherwise)."""
+        return sum(1 for k, live, p, _ in self.calls if k > 1 and live and p)
+
+    def down(self):
+        """(waves of two or more routed while an instance was out, the
+        launches they made)."""
+        return (sum(1 for k, live, _, _ in self.calls if k > 1 and not live),
+                sum(d for _, live, _, d in self.calls if not live))
+
+
+def _index_equals_rebuild(factory):
+    """The live aggregated index against a flat rebuild from the
+    per-instance radix trees, on every stored chain (up to 4 per
+    instance) and seeded misses."""
+    from repro_torch.core.prefix_index import AggregatedPrefixIndex
+    fresh = AggregatedPrefixIndex(factory.n)
+    probes = []
+    for inst in factory.instances:
+        chains = list(inst.kv.chains())
+        for chain in chains:
+            fresh.add(inst.iid, chain)
+        probes += [tuple(c) for c in chains[:4]]
+    rng = np.random.default_rng(SEED)
+    probes += [tuple(int(x) for x in rng.integers(1, 4000, size=6))
+               for _ in range(16)]
+    return bool(np.array_equal(fresh.match_depths_many(probes),
+                               factory._agg.match_depths_many(probes))), \
+        len(probes)
+
+
+def control_path(sim13, device="cuda", cl_cut=1.0):
+    """Phase 15, on phase 13's profile, KV$ and chatbot trace (``sim13``
+    is ``sim_path``'s result):
+
+    * obs: the lmetric chatbot run with every obs component on equals
+      phase 13's run (tuples, launches), has a provenance record per
+      request and a valid trace; two runs of OBS_TRACE_REQUESTS give
+      byte-identical trace JSON; the host wall off and on, best of
+      OBS_REPS each;
+    * churn: the same run under CHURN: every request finishes, none is
+      scheduled on an instance while it is out, launches equal the waves
+      of two or more routed while every instance was live (none while
+      one is out), the tuples equal the CPU run's, and the index equals
+      a rebuild from the radix trees afterwards;
+    * overload: the agent trace at OVERLOAD_MULT x capacity with
+      admission and retraction (== its CPU run) and without;
+    * fleet: ``make_mixed_fleet()`` under the hetero lmetric score and
+      route-then-balance (host-only: no launch; no infeasible route),
+      every fourth request requiring "qwen2_7b"; a homogeneous fleet of
+      phase 13's spec equals phase 13's lmetric run, launches included;
+    * closed loop: ``make_mixed_sessions(CL_MIX)`` at each of CL_MULTS,
+      no control and admission + retraction (mult 20 with CL_FAIL too,
+      == its CPU run), and ``ClosedLoopPDSim`` with CL_PD_SESSIONS
+      chatbot sessions.
+
+    ``device="cpu"`` rehearses the phase (no launch is counted there).
+    Returns the numbers to print."""
+    from repro_torch.cluster.closed_loop import ClosedLoopPDSim, \
+        ClosedLoopSim
+    from repro_torch.cluster.metrics import (hardware_class_summary,
+                                             overload_summary, summarize)
+    from repro_torch.cluster.simulator import ClusterSim, make_mixed_fleet
+    from repro_torch.core import (LatencyModel, OverloadControl, Router,
+                                  homogeneous_fleet, make_policy)
+    from repro_torch.kernels import route_score as rs
+    from repro_torch.obs import make_obs, validate_events
+    from repro_torch.workloads.sessions import (SESSIONS,
+                                                make_mixed_sessions,
+                                                session_stats)
+    from repro_torch.workloads.traces import (estimate_capacity_qps,
+                                              make_trace)
+    t_phase = time.perf_counter()
+    spec, kv = sim13["spec"], sim13["kv"]
+    chat, chat_waves, chat_fin = sim13["flat_chatbot"]
+    on_card = device != "cpu"
+
+    def run(dev, policy="lmetric", trace=None, sessions=None, obs=None,
+            overload=None, churn=(), fleet=None):
+        """One ``ClusterSim`` run of ``trace`` (``ClosedLoopSim`` of
+        ``sessions``); checks its launches and returns its record."""
+        rs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        router = Router(make_policy(policy), SIM_INSTANCES,
+                        kv_capacity_tokens=kv, fleet=fleet, obs=obs,
+                        device=dev)
+        ledger = WaveLedger(router, rs)
+        cls = ClusterSim if sessions is None else ClosedLoopSim
+        sim = cls(router, spec, LatencyModel(spec), overload=overload)
+        for kind, t, iid in churn:
+            getattr(sim, f"{kind}_at")(t, iid)
+        done = (sim.run(copy.deepcopy(trace)) if sessions is None
+                else sim.run_sessions(sessions))
+        wall = time.perf_counter() - t0
+        launches = rs.LAUNCHES
+        want = ledger.planned() if dev != "cpu" else 0
+        if launches != want or ledger.launches() != launches:
+            raise AssertionError(f"{policy}: route_score launched "
+                                 f"{launches} times for {want} waves of "
+                                 f"two or more the device plan took")
+        down_waves, down_launches = ledger.down()
+        if down_launches:
+            raise AssertionError(f"{down_launches} launches while an "
+                                 f"instance was out")
+        router.close()
+        return {"sim": sim, "done": done, "wall": wall,
+                "launches": launches, "planned": ledger.planned(),
+                "down_waves": down_waves, "router": router}
+
+    out = {"launches": 0, "checks": []}
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"control plane: {what}")
+        out["checks"].append(what)
+
+    # ---- obs ---------------------------------------------------------
+    full = make_obs(metrics=True, trace=True, provenance=True)
+    r = run(device, trace=chat, obs=full)
+    out["launches"] += r["launches"]
+    check(_finished(r["done"]) == chat_fin,
+          "obs on: tuples == phase 13's lmetric chatbot run")
+    check(r["launches"] == (chat_waves if on_card else 0),
+          f"obs on: {r['launches']} launches == phase 13's")
+    recs = full.provenance.records
+    check(len(recs) == len(chat) and {x["outcome"] for x in recs}
+          == {"finished"}, f"{len(recs)} provenance records, all finished")
+    events = full.tracer.to_json()["traceEvents"]
+    validate_events(events)
+    check(True, f"validate_events passes ({len(events)} events)")
+    snap = r["sim"].metrics_snapshot()
+    out["obs"] = {
+        "hists": {k: v for k, v in snap["hists"].items()
+                  if k.startswith("pipeline.")},
+        "provenance": full.provenance.summary(), "events": len(events),
+        "records": len(recs), "launches": r["launches"]}
+    docs = []
+    for _ in range(2):
+        o = make_obs(metrics=True, trace=True, provenance=True)
+        rr = run(device, trace=chat[:OBS_TRACE_REQUESTS], obs=o)
+        out["launches"] += rr["launches"]
+        docs.append(json.dumps(o.tracer.to_json(), sort_keys=True))
+    check(docs[0] == docs[1], f"two runs of {OBS_TRACE_REQUESTS} requests: "
+          f"byte-identical trace JSON ({len(docs[0])} bytes)")
+    walls = {"off": [], "on": []}
+    for _ in range(OBS_REPS):
+        for mode in ("off", "on"):
+            o = (make_obs(metrics=True, trace=True, provenance=True)
+                 if mode == "on" else None)
+            rr = run(device, trace=chat, obs=o)
+            out["launches"] += rr["launches"]
+            walls[mode].append(rr["wall"])
+            check(_finished(rr["done"]) == chat_fin,
+                  f"obs {mode} timing run == phase 13's")
+    out["obs"]["walls"] = walls
+    out["obs"]["ratio"] = min(walls["on"]) / min(walls["off"])
+
+    # ---- churn -------------------------------------------------------
+    r = run(device, trace=chat, churn=CHURN)
+    out["launches"] += r["launches"]
+    sim, done = r["sim"], r["done"]
+    check(len(done) == len(chat), f"churn: {len(done)} of {len(chat)} "
+          f"requests finished")
+    out_at = {}
+    for kind, t, iid in CHURN:
+        if kind != "recover":
+            out_at[iid] = t
+        else:
+            t0 = out_at.pop(iid)
+            bad = [q.rid for q in done if t0 <= q.t_sched < t
+                   and q.sched_to == iid]
+            check(not bad, f"churn: nothing scheduled on instance {iid} "
+                  f"in [{t0}, {t})")
+    check(r["down_waves"] > 0, f"churn: {r['down_waves']} waves of >= 2 "
+          f"routed on the host while an instance was out, 0 launches")
+    check(r["launches"] == (r["planned"] if on_card else 0),
+          f"churn: {r['launches']} launches == waves of >= 2 routed with "
+          f"all {SIM_INSTANCES} live")
+    same, n_probes = _index_equals_rebuild(r["router"].factory)
+    check(same, f"churn: the aggregated index == a rebuild from the radix "
+          f"trees ({n_probes} probes)")
+    if on_card:
+        cpu = run("cpu", trace=chat, churn=CHURN)
+        check(_finished(cpu["done"]) == _finished(done),
+              "churn: the card's run == the CPU's")
+    out["churn"] = {"summary": summarize(done, per_family_slo=True),
+                    "overload": overload_summary(done, sim.dropped,
+                                                 sim.churn_recovery),
+                    "events": sim.churn_events,
+                    "stats": sim.overload_stats(),
+                    "launches": r["launches"], "planned": r["planned"],
+                    "down_waves": r["down_waves"], "wall": r["wall"]}
+
+    # ---- overload ----------------------------------------------------
+    probe = make_trace("agent", qps=20.0, duration=300.0, seed=SIM_SEED)
+    cap = estimate_capacity_qps(spec, probe, SIM_INSTANCES)
+    qps = OVERLOAD_MULT * cap
+    agent = make_trace("agent", qps=qps, duration=SIM_REQUESTS / qps,
+                       seed=SIM_SEED)
+    dur = SIM_REQUESTS / qps
+    while len(agent) < SIM_REQUESTS:
+        dur *= 1.5
+        agent = make_trace("agent", qps=qps, duration=dur, seed=SIM_SEED)
+    agent = _on_tick(agent[:SIM_REQUESTS])
+    out["overload"] = {"qps": qps, "cap": cap, "runs": {}}
+    for name, ctl in (("none", None),
+                      ("admission+retraction",
+                       OverloadControl(admission=True, retraction=True))):
+        r = run(device, trace=agent, overload=ctl)
+        out["launches"] += r["launches"]
+        sim, done = r["sim"], r["done"]
+        check(len(done) + len(sim.dropped) == len(agent),
+              f"overload {name}: every request finished or dropped")
+        if ctl is not None and on_card:
+            cpu = run("cpu", trace=agent, overload=ctl)
+            check(_finished(cpu["done"]) == _finished(done)
+                  and [(q.rid, q.drop_reason) for q in cpu["sim"].dropped]
+                  == [(q.rid, q.drop_reason) for q in sim.dropped],
+                  f"overload {name}: the card's run == the CPU's")
+        out["overload"]["runs"][name] = {
+            "summary": summarize(done, per_family_slo=True),
+            "overload": overload_summary(done, sim.dropped),
+            "stats": sim.overload_stats(), "launches": r["launches"],
+            "planned": r["planned"], "wall": r["wall"]}
+
+    # ---- fleets ------------------------------------------------------
+    mixed = copy.deepcopy(chat)
+    for i, q in enumerate(mixed):
+        if i % 4 == 0:
+            q.model_requirement = "qwen2_7b"
+    fleet = make_mixed_fleet(kv_capacity_tokens=kv)
+    out["fleet"] = {"runs": {}, "norm": fleet.prefill_norm.tolist()}
+    for policy in ("lmetric", "route-then-balance"):
+        r = run(device, policy=policy, trace=mixed, fleet=fleet)
+        done, sim = r["done"], r["sim"]
+        check(r["launches"] == 0, f"fleet {policy}: host-only, 0 launches")
+        bad = [q.rid for q in done if q.model_requirement
+               and fleet.model_of(q.sched_to) != q.model_requirement]
+        check(not bad and len(done) + len(sim.dropped) == len(mixed),
+              f"fleet {policy}: no infeasible route, every request "
+              f"finished or shed")
+        out["fleet"]["runs"][policy] = {
+            "classes": hardware_class_summary(done, fleet),
+            "summary": summarize(done, per_family_slo=True),
+            "shed": len(sim.dropped), "wall": r["wall"]}
+    homo = homogeneous_fleet("qwen2_7b", "h100", SIM_INSTANCES,
+                             kv_capacity_tokens=kv)
+    check(homo.specs[0] == spec and homo.norm_or_none() is None,
+          "homogeneous fleet: each spec == phase 13's, the norm collapses")
+    r = run(device, trace=chat, fleet=homo)
+    out["launches"] += r["launches"]
+    check(_finished(r["done"]) == chat_fin and r["launches"]
+          == (chat_waves if on_card else 0),
+          f"homogeneous fleet == phase 13's lmetric chatbot run, "
+          f"{r['launches']} launches")
+    out["fleet"]["homogeneous"] = {"launches": r["launches"],
+                                   "wall": r["wall"]}
+
+    # ---- the closed loop ---------------------------------------------
+    caps = {f: sim_qps(f, spec) / SIM_LOAD for f in CL_MIX}
+    mix = {f: max(1, int(n * cl_cut)) for f, n in CL_MIX.items()}
+    out["closed"] = {"runs": [], "caps": caps, "mix": mix}
+
+    def sessions(mult):
+        rates = {f: mult * CL_BASE * CL_SHARES[f] * caps[f]
+                 / SESSIONS[f].expected_requests() for f in mix}
+        return make_mixed_sessions(mix, seed=CL_SEED, start_rates=rates)
+
+    for mult in CL_MULTS:
+        for name, ctl in (("none", None),
+                          ("admission+retraction",
+                           OverloadControl(admission=True,
+                                           retraction=True))):
+            churn = ()
+            if mult == CL_MULTS[-1] and ctl is not None:
+                t_fail, t_back, iid = CL_FAIL
+                churn = (("fail", t_fail, iid), ("recover", t_back, iid))
+            ss = sessions(mult)
+            obs = make_obs(metrics=True)
+            r = run(device, sessions=ss, obs=obs, overload=ctl,
+                    churn=churn)
+            out["launches"] += r["launches"]
+            sim, done = r["sim"], r["done"]
+            st = session_stats(ss)
+            check(st["completed"] + st["abandoned"] == len(ss),
+                  f"closed loop x{mult:g} {name}: every session ended")
+            if churn and on_card:
+                cpu = run("cpu", sessions=sessions(mult),
+                          obs=make_obs(metrics=True), overload=ctl,
+                          churn=churn)
+                check(_finished(cpu["done"]) == _finished(done),
+                      f"closed loop x{mult:g} {name} + churn: the card's "
+                      f"run == the CPU's")
+            snap = sim.metrics_snapshot()
+            s = summarize(done, per_family_slo=True, registry_snapshot=snap)
+            out["closed"]["runs"].append({
+                "mult": mult, "control": name, "churn": bool(churn),
+                "summary": s, "sessions": st,
+                "overload": overload_summary(done, sim.dropped,
+                                             sim.churn_recovery),
+                "launches": r["launches"], "planned": r["planned"],
+                "down_waves": r["down_waves"],
+                "dropped_turns": snap["counters"].get(
+                    "sessions.dropped_turns", 0), "wall": r["wall"]})
+    # PD: its waves call route_score directly (one launch each of >= 2)
+    pd_sessions = make_mixed_sessions(
+        {"chatbot": max(1, int(CL_PD_SESSIONS * cl_cut))}, seed=CL_SEED,
+        start_rates={"chatbot": CL_BASE * caps["chatbot"]
+                     / SESSIONS["chatbot"].expected_requests()})
+    rs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    pd = ClosedLoopPDSim(PD_PREFILL, PD_DECODE, spec, kv_capacity_tokens=kv,
+                         device=device)
+    waves = []
+    inner = pd._on_arrivals
+
+    def on_arrivals(reqs):
+        waves.append(len(reqs))
+        return inner(reqs)
+    pd._on_arrivals = on_arrivals
+    done = pd.run_sessions(pd_sessions)
+    wall = time.perf_counter() - t0
+    multi = sum(1 for k in waves if k > 1)
+    check(rs.LAUNCHES == (multi if on_card else 0),
+          f"closed-loop PD: {rs.LAUNCHES} launches == waves of >= 2")
+    out["launches"] += rs.LAUNCHES
+    st = session_stats(pd_sessions)
+    check(st["completed"] + st["abandoned"] == len(pd_sessions),
+          "closed-loop PD: every session ended")
+    out["closed"]["pd"] = {"summary": summarize(done, per_family_slo=True),
+                           "sessions": st, "launches": rs.LAUNCHES,
+                           "waves": multi, "wall": wall}
+    out["wall"] = time.perf_counter() - t_phase
+    return out
+
+
+def _brief(s):
+    """TTFT / TPOT / SLO of a summary, in one clause."""
+    return (f"{s['n']} finished, TTFT mean {s['ttft_mean'] * 1e3:.2f} ms "
+            f"p99 {s['ttft_p99'] * 1e3:.2f}, TPOT mean "
+            f"{s['tpot_mean'] * 1e3:.3f} ms, KV$ hit "
+            f"{s['kv_hit_ratio']:.4f}, SLO {s['slo_attainment']:.4f}, "
+            f"goodput {s['goodput_rps']:.2f}/s")
+
+
+def _wasted(o):
+    return (f"shed {o['n_shed']}, retracted {o['n_retracted']}, late "
+            f"{o['n_late']}, wasted prefill {o['wasted_prefill_tokens']} "
+            f"tokens ({o['wasted_fraction']:.4f} of "
+            f"{o['useful_prefill_tokens'] + o['wasted_prefill_tokens']}), "
+            f"rerouted {o['n_rerouted']}")
+
+
+def report_control(gpu, ph):
+    """Print phase 15's numbers."""
+    tag = f"[{gpu}] control plane:"
+    for c in ph["checks"]:
+        print(f"{tag} ok: {c}")
+    o = ph["obs"]
+    print(f"{tag} obs (metrics, trace every 8th wave, provenance) on the "
+          f"lmetric chatbot run: {o['records']} provenance records, "
+          f"{o['events']} trace events, {o['launches']} launches")
+    for k, h in o["hists"].items():
+        print(f"{tag} {k}: count {h['count']}, p50 {h['p50']:.2f}, p99 "
+              f"{h['p99']:.2f}, max {h['max']:.2f}")
+    print(f"{tag} provenance summary {json.dumps(o['provenance'])}")
+    w = o["walls"]
+    print(f"{tag} host wall of the run, best of {OBS_REPS}: obs off "
+          f"{min(w['off']):.3f} s, on {min(w['on']):.3f} s (all: off "
+          f"{[round(x, 3) for x in w['off']]}, on "
+          f"{[round(x, 3) for x in w['on']]}); ratio {o['ratio']:.3f} "
+          f"against the reference's budget {OBS_BUDGET:.2f} (printed, not "
+          f"gated)")
+    c = ph["churn"]
+    events = ", ".join(f"{e['kind']} {e['iid']} at {e['t']} s "
+                       f"({e['orphans']} orphans)" for e in c["events"])
+    print(f"{tag} churn ({events}): "
+          f"{_brief(c['summary'])} | {_wasted(c['overload'])}, recovery "
+          f"p50 {c['overload']['churn_recovery_p50'] * 1e3:.2f} ms p95 "
+          f"{c['overload']['churn_recovery_p95'] * 1e3:.2f} | launches "
+          f"{c['launches']} == {c['planned']} live waves of >= 2; "
+          f"{c['down_waves']} waves of >= 2 on the host while one was "
+          f"out | host wall {c['wall']:.2f} s")
+    ov = ph["overload"]
+    for name, r in ov["runs"].items():
+        print(f"{tag} overload, agent at {OVERLOAD_MULT:g} x "
+              f"{ov['cap']:.2f} = {ov['qps']:.2f} req/s, {name}: "
+              f"{_brief(r['summary'])} | {_wasted(r['overload'])} | "
+              f"overload_summary {json.dumps(r['overload'])} | launches "
+              f"{r['launches']} | host wall {r['wall']:.2f} s")
+    fl = ph["fleet"]
+    for policy, r in fl["runs"].items():
+        print(f"{tag} mixed fleet (8 qwen3_30b_moe 'fast' + 8 qwen2_7b "
+              f"'slow', prefill norm {fl['norm'][0]:.4g} / "
+              f"{fl['norm'][-1]:.4g} s per token), chatbot, every 4th "
+              f"request needs qwen2_7b, {policy}: {_brief(r['summary'])}, "
+              f"shed {r['shed']}, 0 launches | host wall {r['wall']:.2f} s")
+        for cls, s in r["classes"].items():
+            print(f"{tag}   class {cls}: {_brief(s)}")
+    print(f"{tag} homogeneous fleet (16 x qwen2_7b 'h100'): == phase 13, "
+          f"{fl['homogeneous']['launches']} launches, host wall "
+          f"{fl['homogeneous']['wall']:.2f} s")
+    cl = ph["closed"]
+    print(f"{tag} closed loop: make_mixed_sessions({cl['mix']}, seed="
+          f"{CL_SEED}), start rates mult x {CL_BASE} x share x capacity / "
+          f"expected requests (capacity "
+          f"{ {f: round(v, 2) for f, v in cl['caps'].items()} } req/s)")
+    for r in cl["runs"]:
+        s = r["summary"]
+        print(f"{tag} closed loop x{r['mult']:g} {r['control']}"
+              f"{' + fail/recover' if r['churn'] else ''}: {_brief(s)} | "
+              f"sessions {json.dumps(r['sessions'])} | "
+              f"{_wasted(r['overload'])}, dropped turns fed back "
+              f"{r['dropped_turns']} | launches {r['launches']} == "
+              f"{r['planned']} live waves of >= 2 ({r['down_waves']} on "
+              f"the host while one was out) | host wall {r['wall']:.2f} s")
+        for fam, f in sorted(s.get("families", {}).items()):
+            print(f"{tag}   {fam}: {_brief(f)}")
+        print(f"{tag}   interference {json.dumps(s['interference'])}")
+        print(f"{tag}   overload_summary {json.dumps(r['overload'])}")
+    p = cl["pd"]
+    print(f"{tag} closed-loop PD {PD_PREFILL}+{PD_DECODE}, chatbot: "
+          f"{_brief(p['summary'])} | sessions {json.dumps(p['sessions'])} "
+          f"| launches {p['launches']} == {p['waves']} waves of >= 2 | "
+          f"host wall {p['wall']:.2f} s")
+    print(f"{tag} route_score launches in the phase {ph['launches']}; "
+          f"host wall {ph['wall']:.2f} s")
+
+
+def chat_baseline(device):
+    """What phase 15 takes from phase 13 (its spec, KV$ and lmetric
+    chatbot run), computed alone: for a rehearsal."""
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.configs import get_config
+    from repro_torch.core import Router, make_policy, spec_from_config
+    kv, how = sim_kv_capacity(spec_from_config(get_config("qwen2_7b")))
+    spec = spec_from_config(get_config("qwen2_7b"), kv_capacity_tokens=kv)
+    trace, _ = sim_trace("chatbot", spec, SIM_REQUESTS)
+    sim = ClusterSim(Router(make_policy("lmetric"), SIM_INSTANCES,
+                            kv_capacity_tokens=kv, device=device), spec)
+    done = sim.run(copy.deepcopy(trace))
+    return {"spec": spec, "kv": kv, "how": how,
+            "flat_chatbot": (trace, multi_waves(trace), _finished(done))}
+
+
+def rehearse_control(cl_cut=1.0):
+    """Phase 15 on the CPU (plain versions, no launches)."""
+    ph = control_path(chat_baseline("cpu"), "cpu", cl_cut=cl_cut)
+    report_control("cpu rehearsal", ph)
+    return ph
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2975,6 +3513,18 @@ def main() -> int:
     mirror = time_mirror(torch, backlog(trace, N_INST))
     report_shards(gpu, shards, mirror)
     print(f"[{gpu}] sharded routing: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 15: the control plane ---------------------------------
+    cl_cut = 1.0
+    if time.perf_counter() - t_start > CL_CUT_AFTER_S:
+        cl_cut = CL_CUT
+        print(f"control plane: the closed loop's sessions cut to "
+              f"{cl_cut:g} x to stay within the time limit (instances "
+              f"stay {SIM_INSTANCES})")
+    t0 = time.perf_counter()
+    ctrl = control_path(sim, "cuda", cl_cut=cl_cut)
+    report_control(gpu, ctrl)
+    print(f"[{gpu}] control plane: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
@@ -2983,7 +3533,8 @@ def main() -> int:
         "name": "route_score", "route": "cuda",
         "source": "src/repro_torch/csrc/route_score.cu",
         "replaces": "src/repro/kernels/route_score.py:218",
-        "launches": launches + sim["launches"] + shards["launches"],
+        "launches": (launches + sim["launches"] + shards["launches"]
+                     + ctrl["launches"]),
         "max_abs_err": max(worst, tw["max_abs_err"]),
         "ms": tw["device_ms"], "plain_ms": tw["plain_ms"],
         "bound_ms": tw["bound_ms"], "bound_by": tw["bound_by"],

@@ -1,13 +1,14 @@
-"""Serving-quality metrics — port of ``repro.cluster.metrics``: ``pct``
-and ``summarize`` (TTFT/TPOT percentiles, SLO attainment, goodput and
-per-family breakdowns), ``cdf``, ``imbalance_stats`` (Fig. 10's
-per-window prefill spread) and ``fmt_row``.  The interference,
-hardware-class and overload summaries arrive with observability, fleets
-and overload control (ROADMAP Queue A items 5-7)."""
+"""Serving-quality metrics — port of ``repro.cluster.metrics``: ``pct``,
+``summarize`` (TTFT/TPOT percentiles, SLO attainment, goodput,
+per-family breakdowns and, from a registry snapshot, the cross-family
+interference block), ``interference_summary``,
+``hardware_class_summary`` (mixed fleets), ``overload_summary`` (shed,
+retracted and wasted prefill), ``cdf``, ``imbalance_stats`` (Fig. 10's
+per-window prefill spread) and ``fmt_row``."""
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -23,10 +24,36 @@ def pct(xs: Sequence[float], q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
+def interference_summary(snapshot: Dict) -> Dict:
+    """Cross-family interference view of a metrics-registry snapshot
+    (``ClusterSim.metrics_snapshot``), two halves joined by family tag:
+
+    * ``displaced_tokens[victim][displacer]`` — prefill tokens already
+      queued ahead of an arriving ``victim``-family request, attributed
+      to the ``displacer`` family that owns them (``_enqueue``);
+    * ``queue_delay_ms[family]`` — histogram stats (count/sum/max/
+      p50/p99) of schedule→first-token delay per family.
+    """
+    counters = snapshot.get("counters", {})
+    hists = snapshot.get("hists", {})
+    displaced: Dict[str, Dict[str, int]] = {}
+    pre = "interference.displaced_tokens."
+    for k, v in sorted(counters.items()):
+        if k.startswith(pre):
+            victim, displacer = k[len(pre):].split(".", 1)
+            displaced.setdefault(victim, {})[displacer] = int(v)
+    qpre = "interference.queue_delay_ms."
+    qdelay = {k[len(qpre):]: st for k, st in sorted(hists.items())
+              if k.startswith(qpre)}
+    return {"displaced_tokens": displaced, "queue_delay_ms": qdelay}
+
+
 def summarize(requests: List[Request], slo_ttft: float = SLO_TTFT,
               slo_tpot: float = SLO_TPOT,
               by_family: bool = True,
-              per_family_slo: bool = False) -> Dict[str, float]:
+              per_family_slo: bool = False,
+              registry_snapshot: Optional[Dict] = None
+              ) -> Dict[str, float]:
     """Latency + SLO summary of a finished-request log.
 
     Besides the TTFT/TPOT percentiles, reports
@@ -42,9 +69,12 @@ def summarize(requests: List[Request], slo_ttft: float = SLO_TTFT,
       closed-loop scenarios).
 
     ``per_family_slo=True`` judges every request by its family's entry
-    in ``repro_torch.core.types.FAMILY_SLOS`` (chat-lenient / agent-strict) instead
-    of the single ``slo_ttft``/``slo_tpot`` pair — the mixed-scenario
-    spelling the overload bench reports.
+    in ``repro_torch.core.types.FAMILY_SLOS`` (chat-lenient /
+    agent-strict) instead of the single ``slo_ttft``/``slo_tpot`` pair —
+    the mixed-scenario spelling the overload runs report.
+
+    ``registry_snapshot`` (a ``ClusterSim.metrics_snapshot`` dict)
+    attaches the :func:`interference_summary` block as ``interference``.
     """
     done = [r for r in requests if r.t_finish > 0.0]
     ttft = [r.ttft for r in done]
@@ -84,7 +114,68 @@ def summarize(requests: List[Request], slo_ttft: float = SLO_TTFT,
             fam: summarize(rs, slo_ttft, slo_tpot, by_family=False,
                            per_family_slo=per_family_slo)
             for fam, rs in sorted(fams.items())}
+    if registry_snapshot is not None:
+        out["interference"] = interference_summary(registry_snapshot)
     return out
+
+
+def hardware_class_summary(requests: List[Request], fleet,
+                           per_family_slo: bool = True
+                           ) -> Dict[str, Dict[str, float]]:
+    """:func:`summarize` per hardware class of a mixed fleet: finished
+    requests grouped by ``fleet.class_of(r.sched_to)``, judged by their
+    family SLO by default.  Requests that never finished or never got
+    scheduled have no class and are left out (``overload_summary``
+    accounts for them)."""
+    by_cls: Dict[str, List[Request]] = {}
+    for r in requests:
+        if r.t_finish <= 0.0 or r.sched_to < 0:
+            continue
+        by_cls.setdefault(fleet.class_of(r.sched_to), []).append(r)
+    return {c: summarize(rs, by_family=False,
+                         per_family_slo=per_family_slo)
+            for c, rs in sorted(by_cls.items())}
+
+
+def overload_summary(finished: List[Request],
+                     dropped: Sequence[Request] = (),
+                     churn_recovery: Sequence[float] = ()
+                     ) -> Dict[str, float]:
+    """Overload and failure accounting over a run's request fates.
+
+    ``wasted_fraction`` is the share of prefill work (new tokens
+    prefilled) that bought no within-SLO completion: prefill of requests
+    that finished late (by their family SLO) plus prefill burnt on
+    retracted requests before the cancel.  Shedding burns nothing and
+    shows only in ``n_shed``.  ``churn_recovery`` percentiles are the
+    failure → first-token-elsewhere latencies of orphaned requests.
+    """
+    useful = wasted = 0
+    late = 0
+    for r in finished:
+        work = max(r.new_tokens, 0)
+        if slo_for_family(r.family).met(r):
+            useful += work
+        else:
+            late += 1
+            wasted += work
+    retracted = [r for r in dropped if r.drop_reason == "retracted"]
+    shed = [r for r in dropped if r.drop_reason == "shed"]
+    wasted += sum(r.prefill_done for r in retracted)
+    total = useful + wasted
+    rec = list(churn_recovery)
+    return {
+        "n_finished": len(finished),
+        "n_late": late,
+        "n_shed": len(shed),
+        "n_retracted": len(retracted),
+        "useful_prefill_tokens": int(useful),
+        "wasted_prefill_tokens": int(wasted),
+        "wasted_fraction": wasted / total if total else 0.0,
+        "n_rerouted": len(rec),
+        "churn_recovery_p50": pct(rec, 50) if rec else 0.0,
+        "churn_recovery_p95": pct(rec, 95) if rec else 0.0,
+    }
 
 
 def cdf(xs: Sequence[float], n_points: int = 50):

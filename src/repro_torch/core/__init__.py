@@ -5,7 +5,10 @@ import it."""
 import importlib
 
 _EXPORTS = {
-    "types": ("Request",),
+    "types": ("Deadline", "DEFAULT_SLO", "FAMILY_SLOS", "Request", "SLO",
+              "slo_for_family", "stamp_deadline"),
+    "overload": ("AdmissionController", "NO_CONTROL", "OverloadControl"),
+    "fleet": ("FleetSpec", "homogeneous_fleet", "make_fleet"),
     "radix": ("RadixKVIndex", "tokens_to_blocks"),
     "prefix_index": ("AggregatedPrefixIndex", "shard_bounds"),
     "faults": ("FaultEvent", "FaultInjector", "FaultPlan", "ShardError"),
@@ -17,8 +20,9 @@ _EXPORTS = {
     "latency_model": ("EngineSpec", "LatencyModel", "spec_from_config"),
     "policies": ("DynamoPolicy", "FilterKVPolicy", "JSQPolicy",
                  "LinearKVPolicy", "LMetricPolicy", "Policy",
-                 "PolyServePolicy", "PreblePolicy", "SessionAffinityPolicy",
-                 "SimulationPolicy", "make_policy"),
+                 "PolyServePolicy", "PreblePolicy", "RouteThenBalancePolicy",
+                 "SessionAffinityPolicy", "SimulationPolicy",
+                 "make_policy"),
     "hotspot": ("HotspotDetector",),
     "router": ("Router", "commit_wave_plan"),
     "state": ("router_from_numpy_state",),

@@ -67,9 +67,21 @@ leading run of entries older than the window and sums what is left in
 one vectorized pass.  A full row is first trimmed to ``LOG_HORIZON_S``
 and the whole matrix doubles only if that frees nothing.
 
-Left out of this port so far: heterogeneous-fleet columns (ROADMAP
-Queue A item 6) and instance failure (item 7); their entry points raise
-``NotImplementedError``.
+Heterogeneous fleets: ``IndicatorFactory(fleet=...)`` (a
+``repro_torch.core.fleet.FleetSpec``) carries the immutable columns
+``model_id``, ``hardware_class`` and ``prefill_norm`` (the per-instance
+marginal prefill cost the hetero LMetric score multiplies in; None when
+the fleet's costs are constant, so a homogeneous fleet keeps the legacy
+path), ``feasible_mask(requirement)`` (cached per requirement) and
+``device_hetero_view()`` (the three columns on ``factory.device``,
+uploaded once; no routing path reads it — the hetero score is host-only,
+as in the reference).
+
+Instance failure (``on_instance_failed``) zeroes the instance's four
+columns and its routed-window ring, dirties the mirror range that holds
+it — so the next ``device_view`` re-uploads the zeroed columns — and
+clears its radix tree, whose ``on_clear`` removes its column from the
+aggregated index through the shard backend.
 """
 from __future__ import annotations
 
@@ -83,7 +95,7 @@ from .prefix_index import (  # noqa: F401  (re-exported names)
     AggregatedPrefixIndex, _lcp_block, _pairwise_lcp, _sorted_lcp,
     digest_from_chains, shard_bounds, shard_owner)
 from .radix import RadixKVIndex
-from .types import Request, not_ported
+from .types import Request
 
 
 def resolve_device(device) -> torch.device:
@@ -255,8 +267,6 @@ class IndicatorFactory:
                  walk_backend: Optional[str] = None,
                  shard_timeout_s: Optional[float] = None,
                  fleet=None, device="cuda"):
-        if fleet is not None:
-            raise not_ported("a heterogeneous fleet", 6, "core/fleet.py")
         self.n = n_instances
         self.block_size = block_size
         self.exact_only = exact_only
@@ -264,6 +274,26 @@ class IndicatorFactory:
         self.parallel_walks = parallel_walks
         self.shard_timeout_s = shard_timeout_s
         self.device = resolve_device(device)
+        # --- heterogeneous fleet columns ---------------------------------
+        # written once here and never mutated, so the mirror's dirty
+        # flags have nothing to re-upload for them; prefill_norm is None
+        # without a fleet or when the fleet's costs are constant
+        # (FleetSpec.norm_or_none): the collapse that keeps homogeneous
+        # configurations on the legacy path
+        self.fleet = fleet
+        if fleet is not None:
+            if fleet.n != n_instances:
+                raise ValueError(f"fleet describes {fleet.n} instances, "
+                                 f"factory has {n_instances}")
+            self.model_id = fleet.model_codes.copy()
+            self.hardware_class = fleet.class_codes.copy()
+            self.prefill_norm = fleet.norm_or_none()
+        else:
+            self.model_id = np.zeros(n_instances, dtype=np.int64)
+            self.hardware_class = np.zeros(n_instances, dtype=np.int64)
+            self.prefill_norm = None
+        self._dev_hetero = None
+        self._feasible_cache = {}
         # degraded-mode telemetry: walk-backend deaths survived by
         # rebuilding (one shard of) the index from the per-instance radix
         # trees; on_degraded_rebuild(n) fires once per increment, never
@@ -453,12 +483,22 @@ class IndicatorFactory:
             return [], False
         return cap, self.evictions == self._capture_ev0
 
-    # ---- paths of later slices -------------------------------------------
+    # ---- instance churn (the factory's half) -----------------------------
     def on_instance_failed(self, iid: int):
-        raise not_ported("instance failure", 7, "the router's churn hooks")
-
-    def feasible_mask(self, requirement: str):
-        raise not_ported("capability masks", 6, "core/fleet.py")
+        """An instance died with its KV$: zero its indicator columns
+        (dirtying the mirror range that holds it), forget its routed
+        window, and clear its radix tree — the ``on_clear`` callback
+        removes its aggregated-index column through the shard backend
+        and bumps the eviction counter, which also voids any in-flight
+        speculative insert capture."""
+        self.r_bs[iid] = 0
+        self.q_bs[iid] = 0
+        self.queued_prefill_tokens[iid] = 0
+        self.total_tokens[iid] = 0
+        self._log_start[iid] = 0
+        self._log_len[iid] = 0
+        self.mark_dirty(iid)
+        self.instances[iid].kv.clear()
 
     # ---- degraded mode (walk-backend death) ------------------------------
     def _rebuild_index(self, shard: Optional[int] = None):
@@ -767,6 +807,51 @@ class IndicatorFactory:
         self._dirty[:] = False
         self._dev = tuple(self._mirror.unbind(0))
         return self._dev
+
+    # ---- heterogeneous fleet reads ---------------------------------------
+    def feasible_mask(self, requirement: str):
+        """Boolean capability mask for a ``model_requirement``, or None
+        when there is nothing to filter (no fleet, or an empty
+        requirement).  Callers intersect it into the policy's candidate
+        set like the alive mask, so a None keeps the legacy path.  Cached
+        per requirement string (the fleet is immutable)."""
+        if self.fleet is None or not requirement:
+            return None
+        m = self._feasible_cache.get(requirement)
+        if m is None:
+            m = self.fleet.feasible_mask(requirement)
+            self._feasible_cache[requirement] = m
+        return m
+
+    def device_hetero_view(self):
+        """(model_id, hardware_class, prefill_norm) as tensors on
+        ``self.device`` (int64, int64, float64); the norm slot is None
+        when ``prefill_norm`` collapsed.  The columns never change, so
+        one upload serves every call.  No routing path reads it: the
+        ``route_score`` kernel has no norm input, and the hetero score
+        takes the host path."""
+        if self._dev_hetero is None:
+            self._dev_hetero = (
+                torch.from_numpy(self.model_id).to(self.device),
+                torch.from_numpy(self.hardware_class).to(self.device),
+                None if self.prefill_norm is None
+                else torch.from_numpy(self.prefill_norm).to(self.device))
+        return self._dev_hetero
+
+    def snapshot(self) -> Dict[str, List]:
+        """The indicator columns (and the fleet's code columns) as lists."""
+        snap = {
+            "r_bs": self.r_bs.tolist(),
+            "q_bs": self.q_bs.tolist(),
+            "bs": self.bs_vector().tolist(),
+            "queued_prefill_tokens": self.queued_prefill_tokens.tolist(),
+            "total_tokens": self.total_tokens.tolist(),
+            "kv_tokens": [i.kv.tokens_stored for i in self.instances],
+        }
+        if self.fleet is not None:
+            snap["model_id"] = self.model_id.tolist()
+            snap["hardware_class"] = self.hardware_class.tolist()
+        return snap
 
     # ---- wave inputs (host half of the batch routing path) ---------------
     def wave_submit(self, reqs: Sequence[Request]) -> _WaveHandle:

@@ -37,8 +37,17 @@ Two things threaten bit-identity, and both are handled:
 
 Per-stage wall times and the speculation counters accumulate here and
 surface through :meth:`RoutingPipeline.stage_stats` and
-``Router.walk_telemetry()['pipeline']``.  The reference's trace spans and
-metrics registry (ROADMAP Queue A item 5) are not ported.
+``Router.walk_telemetry()['pipeline']``.
+
+Observability: with an obs bundle on the router (``Router(obs=...)``) a
+wave emits the reference's span tree (``wave`` holding ``walk``,
+``score`` and ``commit``, every Nth wave), the speculation instants
+(``spec.submit`` / ``spec.consume`` / ``spec.discard``), per-shard walk
+marks on the shard workers' tracks, the four ``pipeline.*``
+histograms, and a provenance record per decision inside ``commit``,
+taken before that decision's commit.  The port's own stages (the mirror
+upload, the kernel's submit and collect) sit inside ``score``.  With
+``obs=None`` none of it runs.
 """
 from __future__ import annotations
 
@@ -49,6 +58,21 @@ import numpy as np
 
 from .prefix_index import _pairwise_lcp
 from .types import Request
+
+
+class _NullCtx:
+    """No-op context manager for the ``obs=None`` stage-span guards."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_CTX = _NullCtx()
 
 
 class _Speculation:
@@ -125,7 +149,7 @@ class RoutingPipeline:
             col = cross[:u, u + j][h.uid]       # per-request credit
             np.maximum(depth[:, iid], col, out=depth[:, iid])
 
-    def _walk_stage(self, reqs: Sequence[Request]):
+    def _walk_stage(self, reqs: Sequence[Request], tracer=None):
         """Produce (depth, lcp, plen): consume a validated speculation
         (patched for post-snapshot inserts) or walk fresh."""
         factory = self.router.factory
@@ -141,12 +165,21 @@ class RoutingPipeline:
                 wave = factory.wave_collect(h)
                 self.spec_blocked_ns += time.perf_counter_ns() - t0
                 self.prefetch_hits += 1
+                if tracer is not None:
+                    tracer.instant("spec.consume",
+                                   args={"k": len(reqs),
+                                         "patched": len(inserted)})
                 self._patch_speculation(wave, h, inserted)
                 return wave
+            if tracer is not None:
+                tracer.instant("spec.discard",
+                               args={"k": len(h.reqs),
+                                     "predicted": predicted,
+                                     "valid": valid})
             factory.wave_discard(h)
         return factory.wave_collect(factory.wave_submit(reqs))
 
-    def _maybe_prefetch(self):
+    def _maybe_prefetch(self, tracer=None):
         """Between score dispatch and collect: speculatively submit the
         predicted next wave's walk (one outstanding at a time)."""
         router = self.router
@@ -163,36 +196,55 @@ class RoutingPipeline:
         h = factory.wave_submit(tuple(hint))
         self._spec = _Speculation(h, time.perf_counter_ns())
         self.prefetches += 1
+        if tracer is not None:
+            tracer.instant("spec.submit", args={"k": len(hint)})
 
     # ------------------------------------------------------------------
     def run_wave(self, reqs: Sequence[Request], now: float) -> List[int]:
         """Route one coalesced arrival wave through walk → score →
         commit; bit-identical to sequential ``route`` calls, with or
-        without speculation."""
+        without speculation and with or without an obs bundle."""
         from .router import commit_wave_plan
         router = self.router
         policy = router.policy
         factory = router.factory
+        obs = router.obs
+        tr = obs.tracer if obs is not None else None
+        reg = obs.registry if obs is not None else None
+        wave_span = None
+        if tr is not None:
+            tr.wave_tick()
+            wave_span = tr.span("wave", args={"k": len(reqs)})
+            wave_span.__enter__()
         t0 = time.perf_counter_ns()
-        if policy.batch_needs_kv:
-            wave = self._walk_stage(reqs)
-        else:
-            self.drop_prefetch()
-            wave = policy.wave_inputs(reqs, factory)
+        with (tr.span("walk") if tr is not None else _NULL_CTX):
+            if policy.batch_needs_kv:
+                wave = self._walk_stage(reqs, tracer=tr)
+            else:
+                self.drop_prefetch()
+                wave = policy.wave_inputs(reqs, factory)
+        if tr is not None and tr._sampled:
+            self._shard_marks(tr)
         t1 = time.perf_counter_ns()
-        handle = policy.plan_submit(wave, factory)
-        tp0 = time.perf_counter_ns()
-        self._maybe_prefetch()
-        tp = time.perf_counter_ns() - tp0   # prefetch is walk work
-        sel, _ = policy.plan_collect(handle)
+        with (tr.span("score") if tr is not None else _NULL_CTX):
+            handle = policy.plan_submit(wave, factory)
+            tp0 = time.perf_counter_ns()
+            self._maybe_prefetch(tracer=tr)
+            tp = time.perf_counter_ns() - tp0   # prefetch is walk work
+            sel, _ = policy.plan_collect(handle)
         t2 = time.perf_counter_ns()
         self.walk_ns += (t1 - t0) + tp
         self.score_ns += (t2 - t1) - tp
         self.submit_ns += tp0 - t1
         per_req_ns = (t2 - t0) // len(reqs)
+        prov = obs.provenance if obs is not None else None
 
         def commit(j, req):
             iid = int(sel[j])
+            if prov is not None:
+                # the landscape before this commit, after the wave's
+                # earlier ones: what sequential routing would have seen
+                prov.record(req, iid, factory, now, policy=policy)
             policy._next_tie()           # one tie value per commit
             router.decision_ns.append(per_req_ns)
             inst = factory[iid]
@@ -206,10 +258,19 @@ class RoutingPipeline:
             router.routed += 1
             return iid
 
-        out = commit_wave_plan(factory, reqs, commit,
-                               lambda r: router.route(r, now))
-        self.commit_ns += time.perf_counter_ns() - t2
+        with (tr.span("commit") if tr is not None else _NULL_CTX):
+            out = commit_wave_plan(factory, reqs, commit,
+                                   lambda r: router.route(r, now))
+        t3 = time.perf_counter_ns()
+        self.commit_ns += t3 - t2
         self.waves += 1
+        if wave_span is not None:
+            wave_span.__exit__(None, None, None)
+        if reg is not None:
+            reg.observe("pipeline.walk_us", ((t1 - t0) + tp) / 1e3)
+            reg.observe("pipeline.score_us", ((t2 - t1) - tp) / 1e3)
+            reg.observe("pipeline.commit_us", (t3 - t2) / 1e3)
+            reg.observe("pipeline.wave_size", float(len(reqs)))
         # anti-entropy sweep: digest-verify the next K shards against KV
         # truth, repairing on mismatch — after this wave's commit, and
         # off at the default k = 0
@@ -217,6 +278,17 @@ class RoutingPipeline:
         if k:
             factory.anti_entropy_step(k)
         return out
+
+    def _shard_marks(self, tr):
+        """Per-shard walk marks on the shard workers' pid tracks: the
+        parent emits on each worker's behalf, with the cumulative walk
+        count as the deterministic payload."""
+        backend = getattr(self.router.factory._agg, "backend", None)
+        if backend is None:
+            return
+        walks = backend.shard_walks
+        for s in range(len(walks)):
+            tr.shard_mark(s, "walk", args={"walks": int(walks[s])})
 
     # ------------------------------------------------------------------
     def stage_stats(self) -> dict:

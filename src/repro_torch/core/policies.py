@@ -15,6 +15,9 @@ of the reference, so host decisions are bit-identical to it.
   LMetricPolicy      THE PAPER: P-token × BS     (Fig. 17b)
   SessionAffinityPolicy  session-centric baseline: sticky session →
                          instance pins with a load-spread escape valve
+  RouteThenBalancePolicy two-layer baseline for heterogeneous fleets:
+                         hardware class by mean load, then the plain
+                         product within it
 
 Batch routing: ``plan_submit``/``plan_collect`` are the score stage of
 ``Router.route_batch`` — the fused sequential-argmin-with-feedback loop
@@ -25,13 +28,13 @@ instance is masked out by ``alive``, and for the host-only policies, as
 in the reference: llm-d and PolyServe (their predictor's noise is a host
 stream), Dynamo (per-request max-normalisation), Preble (windowed
 fallback state), session affinity (the pin map changes per decision),
-and LMetric with the "cost" load indicator or a hotspot detector.
+LMetric with the "cost" load indicator, a hotspot detector or a
+heterogeneous fleet's normalization (the kernel has no norm input; a
+homogeneous fleet collapses the norm and keeps the device plan), and
+route-then-balance.
 ``scores_batch`` is the side-effect-free (k, n) inspection matrix of a
 wave against the frozen state: it leaves the noise stream, the rings and
 the pins as they were.
-
-Not ported yet: the route-then-balance policy, which reads the fleet's
-capability masks (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ import numpy as np
 from ..kernels import route_score
 from .indicators import IndicatorFactory
 from .latency_model import LatencyModel
-from .types import Request, not_ported
+from .types import Request
 
 _EPS = 1e-9
 
@@ -548,13 +551,22 @@ class LMetricPolicy(Policy):
             a = factory.p_tokens_for(req, hits) + 1.0
         else:
             a = 1.0 - hits / L + 1e-3
+        if factory.prefill_norm is not None:
+            # heterogeneous fleet: the KV$ term in seconds of prefill
+            # work, not tokens (None on homogeneous fleets, which skips
+            # the multiply and keeps the legacy floats)
+            a = a * factory.prefill_norm
         return a * self._load(factory)
 
     def _batch_params(self):
         return (self.kv_indicator, self.load_indicator)
 
     def batch_supported(self, factory):
-        if self.detector is not None or self.load_indicator == "cost":
+        if (self.detector is not None or self.load_indicator == "cost"
+                or factory.prefill_norm is not None):
+            # host-only, as in the reference: the detector's phase
+            # machine, the latency model's arithmetic, and the hetero
+            # norm (the kernel has no norm input)
             return False
         return super().batch_supported(factory)
 
@@ -567,6 +579,8 @@ class LMetricPolicy(Policy):
                  + (plens[:, None] - hits)) + 1.0
         else:
             a = 1.0 - hits / L + 1e-3
+        if factory.prefill_norm is not None:
+            a = a * factory.prefill_norm[None, :]
         return a * self._load(factory)
 
     def route(self, req, factory, now):
@@ -584,6 +598,65 @@ class LMetricPolicy(Policy):
             # mitigation: balance load alone over the remainder
             return self._select_min(factory.bs_vector(), allowed=allowed)
         return self._select_min(scores)
+
+
+# ---------------------------------------------------------------------------
+class RouteThenBalancePolicy(Policy):
+    """Two-layer baseline for a heterogeneous fleet.
+
+    Layer 1 (a model router) picks the *hardware class* with the lowest
+    mean batch size among feasible candidates: it sees load but not
+    speed.  Layer 2 runs the plain (un-normalized) product within the
+    chosen class, where a common constant would cancel anyway.  The
+    fused normalized LMetric beats it when the layers disagree: a
+    lightly loaded slow class can win layer 1 while a moderately loaded
+    fast class would finish the prefill sooner.  Host-only
+    (``batch_kind=None``), as in the reference.
+    """
+    name = "route-then-balance"
+    batch_kind = None
+
+    def _lmetric_scores(self, req, factory, hits):
+        a = factory.p_tokens_for(req, hits) + 1.0
+        b = factory.bs_vector() + 1.0
+        return a * b
+
+    def _candidates(self, req, factory) -> np.ndarray:
+        """Feasible ∩ alive, falling back to alive (the admission gate
+        sheds a request nothing can serve before it reaches a policy)."""
+        ok = np.ones(len(factory), dtype=bool)
+        feas = factory.feasible_mask(req.model_requirement)
+        if feas is not None:
+            ok &= feas
+        if self.alive is not None:
+            ok &= self.alive
+        if not ok.any():
+            ok = (np.ones(len(factory), dtype=bool)
+                  if self.alive is None else self.alive.copy())
+        return ok
+
+    def route(self, req, factory, now):
+        hits = factory.hits_for(req)
+        ok = self._candidates(req, factory)
+        cls = factory.hardware_class
+        bs = factory.bs_vector()
+        best_c, best_load = -1, np.inf
+        for c in np.unique(cls[ok]):
+            load = float(bs[ok & (cls == c)].mean())
+            if load < best_load:
+                best_c, best_load = int(c), load
+        allowed = np.flatnonzero(ok & (cls == best_c))
+        scores = self._lmetric_scores(req, factory, hits)
+        return self._select_min(scores, allowed=allowed)
+
+    def scores_batch(self, reqs, factory, now):
+        # the layer-2 score every row ranks (the class restriction is a
+        # candidate filter, not a score)
+        hits = self._hits_matrix(reqs, factory)
+        plens = self._plens(reqs)
+        a = (factory.queued_prefill_tokens
+             + (plens[:, None] - hits)) + 1.0
+        return a * (factory.bs_vector() + 1.0)
 
 
 def make_policy(name: str, latency_model: Optional[LatencyModel] = None,
@@ -613,5 +686,5 @@ def make_policy(name: str, latency_model: Optional[LatencyModel] = None,
     if name in ("session-affinity", "smetric", "affinity"):
         return SessionAffinityPolicy(**kw)
     if name in ("route-then-balance", "rtb"):
-        raise not_ported("route-then-balance", 6, "core/fleet.py")
+        return RouteThenBalancePolicy(**kw)
     raise KeyError(name)

@@ -27,6 +27,17 @@ backends the pipeline overlaps the next wave's walk with this wave's
 score stage (``pipeline_overlap``: None = automatic).
 ``anti_entropy_k`` digest-verifies that many shards after every wave.
 A router with worker processes must be closed (``close`` or ``with``).
+
+``fleet`` (a ``repro_torch.core.fleet.FleetSpec``) makes the fleet
+heterogeneous: a request with a ``model_requirement`` is routed over the
+instances that serve it (the capability mask, intersected like the
+alive mask), and a wave that carries requirements takes the sequential
+host path.  ``obs`` (``repro_torch.obs.make_obs``) attaches metrics,
+tracing and decision provenance; with the default ``obs=None`` none of
+that code runs.  Instance churn: ``mark_failed`` (the instance's state
+is lost), ``mark_drained`` (no new work) and ``mark_recovered``; while
+any instance is out the policy carries an alive mask and waves take the
+host path, and once the whole fleet is back the device plan resumes.
 """
 from __future__ import annotations
 
@@ -66,14 +77,15 @@ class Router:
                  walk_backend: Optional[str] = None,
                  pipeline_overlap: Optional[bool] = None,
                  shard_timeout_s: Optional[float] = None,
-                 anti_entropy_k: int = 0, device="cuda"):
+                 anti_entropy_k: int = 0, fleet=None, obs=None,
+                 device="cuda"):
         self.policy = policy
         self.factory = IndicatorFactory(
             n_instances, kv_capacity_tokens=kv_capacity_tokens,
             block_size=block_size, exact_only=exact_only,
             n_shards=n_shards, parallel_walks=parallel_walks,
             walk_backend=walk_backend, shard_timeout_s=shard_timeout_s,
-            device=device)
+            fleet=fleet, device=device)
         self.insert_on_route = insert_on_route
         self.decision_ns: List[int] = []
         self.routed = 0
@@ -81,6 +93,15 @@ class Router:
         #: anti-entropy budget: shards digest-verified (and repaired on
         #: mismatch) at the tail of every routed wave; 0 disables it
         self.anti_entropy_k = int(anti_entropy_k)
+        # observability bundle (repro_torch.obs.Obs); None runs no
+        # observability code anywhere in the routing stack: every hook
+        # is an ``is None`` branch
+        self.obs = obs
+        if obs is not None and (obs.registry is not None
+                                or obs.tracer is not None):
+            self.factory.on_degraded_rebuild = self._on_degraded_rebuild
+            self.factory.on_shard_repair = self._on_shard_repair
+            self.factory.attach_backend_events(self._on_backend_event)
 
     @property
     def device(self):
@@ -100,11 +121,93 @@ class Router:
     def __exit__(self, *exc):
         self.close()
 
+    # ---- observability -----------------------------------------------
+    def _on_degraded_rebuild(self, n: int):
+        """Exactly-once degraded-rebuild event (the factory fires it at
+        the counter's increment)."""
+        obs = self.obs
+        if obs.registry is not None:
+            obs.registry.inc("events.degraded_rebuild")
+        if obs.tracer is not None:
+            obs.tracer.instant("index.degraded_rebuild", args={"n": n})
+
+    def _on_shard_repair(self, s: int, n: int):
+        """Exactly-once scoped-repair event (fired at the factory's
+        ``shard_repairs`` increment)."""
+        obs = self.obs
+        if obs.registry is not None:
+            obs.registry.inc("events.index_repair")
+        if obs.tracer is not None:
+            obs.tracer.instant("index.shard_repair",
+                               args={"shard": s, "n": n})
+
+    def _on_backend_event(self, kind: str, shard: int, info: dict):
+        """Shard-backend recovery events (``worker_restart`` /
+        ``worker_timeout`` / ``shard_escalated`` / ``shard_repair``) →
+        a registry counter and a tracer instant."""
+        obs = self.obs
+        if obs.registry is not None:
+            obs.registry.inc(f"events.{kind}")
+        if obs.tracer is not None:
+            obs.tracer.instant(f"shard.{kind}",
+                               args={"shard": shard, **info})
+
+    def _emit_churn(self, kind: str, iid: int):
+        obs = self.obs
+        if obs is None:
+            return
+        if obs.registry is not None:
+            obs.registry.inc(f"churn.{kind}")
+        if obs.tracer is not None:
+            obs.tracer.instant(f"churn.{kind}", args={"iid": iid})
+
+    def metrics_snapshot(self) -> dict:
+        """One registry snapshot: the attached obs registry (a fresh one
+        without it) with the router's own accumulators ingested
+        (``repro_torch.obs.registry.ingest_router``: factory walks,
+        pipeline stages, repairs, the shard workers' fixed-slot block).
+        Ingestion is ``counter_set``, so repeated calls never
+        double-count."""
+        from ..obs.registry import MetricsRegistry, ingest_router
+        reg = (self.obs.registry if self.obs is not None
+               and self.obs.registry is not None else MetricsRegistry())
+        ingest_router(reg, self)
+        return reg.snapshot()
+
     # ------------------------------------------------------------------
+    def _route_masked(self, req: Request, mask, now: float) -> int:
+        """Capability-masked decision: the feasibility mask is
+        intersected into the policy's candidate set like the alive mask
+        (a pre-score filter) and restored afterwards.  A request no live
+        instance serves must be shed upstream (``AdmissionController``);
+        reaching here with an empty candidate set is a caller bug."""
+        pol = self.policy
+        saved = pol.alive
+        eff = mask if saved is None else (mask & saved)
+        if not eff.any():
+            raise ValueError(
+                f"no live instance serves model_requirement="
+                f"{req.model_requirement!r} (shed it at admission)")
+        pol.alive = eff
+        try:
+            return pol.route(req, self.factory, now)
+        finally:
+            pol.alive = saved
+
     def route(self, req: Request, now: float) -> int:
         t0 = time.perf_counter_ns()
-        iid = self.policy.route(req, self.factory, now)
+        mask = self.factory.feasible_mask(req.model_requirement)
+        if mask is None:
+            iid = self.policy.route(req, self.factory, now)
+        else:
+            iid = self._route_masked(req, mask, now)
         self.decision_ns.append(time.perf_counter_ns() - t0)
+        obs = self.obs
+        if obs is not None and obs.provenance is not None:
+            # before any commit hook mutates indicators, so the record
+            # holds the landscape the argmin saw
+            obs.provenance.record(req, iid, self.factory, now,
+                                  policy=self.policy)
         inst = self.factory[iid]
         hit = inst.kv_hit(req, touch=True)
         req.sched_to = iid
@@ -126,19 +229,59 @@ class Router:
         (the plan's intra-wave LCP credit would model inserts that never
         happen), and a policy or factory the device plan does not support
         (``exact_only``, a failed instance) take the sequential host
-        path; a mid-wave eviction hands the rest of the wave to it.
+        path, and so does a wave carrying a ``model_requirement`` on a
+        fleet (each request needs its own capability mask, which the
+        device plan has no input for); a mid-wave eviction hands the
+        rest of the wave to it.
 
         ``decision_ns`` records the walk + score cost amortized over the
         wave."""
         if not reqs:
             return []
         if (len(reqs) == 1 or not self.insert_on_route
-                or not self.policy.batch_supported(self.factory)):
+                or not self.policy.batch_supported(self.factory)
+                or (self.factory.fleet is not None
+                    and any(r.model_requirement for r in reqs))):
             # the scalar path mutates the index without an insert
             # capture, so any pending speculative walk is dropped first
             self.pipeline.drop_prefetch()
             return [self.route(r, now) for r in reqs]
         return self.pipeline.run_wave(reqs, now)
+
+    # ---- overload control --------------------------------------------
+    def on_retract(self, iid: int, req: Request, prefill_left: int):
+        """A queued-or-prefilling request was cancelled (deadline
+        blown): reverse its ``on_route`` contribution.  The KV$ insert
+        made at routing stays for the LRU."""
+        self.factory[iid].on_retract(req, prefill_left)
+
+    # ---- instance churn ----------------------------------------------
+    def mark_failed(self, iid: int):
+        """An instance died: before the next wave commits, the failure
+        reaches scoring (the policy's alive mask), the aggregated index
+        (its column removed through the shard backend), the device
+        mirror (the zeroed columns' range dirtied) and speculation (any
+        captured walk dropped).  The churn event is emitted before the
+        teardown, so an index mutation retried through a degraded
+        rebuild cannot emit it twice."""
+        self._emit_churn("fail", iid)
+        self.pipeline.drop_prefetch()
+        self.factory.on_instance_failed(iid)
+        self.policy.on_instance_failed(iid, self.factory.n)
+
+    def mark_drained(self, iid: int):
+        """Graceful drain: route no new work to ``iid``; its KV$ and
+        queue state stay (in-flight work completes)."""
+        self._emit_churn("drain", iid)
+        self.pipeline.drop_prefetch()
+        self.policy.on_instance_failed(iid, self.factory.n)
+
+    def mark_recovered(self, iid: int):
+        """A failed or drained instance rejoined.  When the whole fleet
+        is live again the policy drops its mask and the device wave path
+        resumes."""
+        self._emit_churn("recover", iid)
+        self.policy.on_instance_recovered(iid)
 
     # ---- response piggyback hooks ------------------------------------
     def on_prefill_progress(self, iid: int, n_tokens: int):

@@ -3,7 +3,8 @@
 For this system the state is what weights are to a model: the indicator
 columns, each instance's KV$ block chains, its routed-window ring (which
 Preble's fallback reads) and the policy's tie counter decide every later
-routing decision.  ``router_from_numpy_state`` builds
+routing decision; in the middle of instance churn, so does the
+policy's alive mask.  ``router_from_numpy_state`` builds
 a port ``Router`` from that state as any other implementation can
 export it — for instance the reference ``repro.core`` router's factory
 arrays and ``RadixKVIndex.chains()`` — without importing that
@@ -27,6 +28,7 @@ def router_from_numpy_state(policy: Policy, n: int,
                             tie: int,
                             routed: Optional[Sequence[
                                 Sequence[Tuple[float, int]]]] = None,
+                            alive: Optional[Sequence[bool]] = None,
                             **router_kw) -> Router:
     """A port ``Router`` over ``n`` instances holding the given state.
 
@@ -37,8 +39,13 @@ def router_from_numpy_state(policy: Policy, n: int,
     policy's round-robin tie counter.  ``routed[i]``, if given, lists
     instance ``i``'s routed-window entries ``(t, p_tokens)`` oldest first
     (the reference's ``factory.routed_window(i)``); they are logged into
-    its ring in that order.  ``router_kw`` goes to ``Router``
-    (``kv_capacity_tokens``, ``block_size``, ``device``, ...).
+    its ring in that order.  ``alive``, if given, is the (n,) mask of
+    live instances (the source policy's ``alive``: a failed or drained
+    instance is False); the policy carries it as its own, so a state
+    exported mid-churn routes as the source would, host-only until the
+    instances recover.  ``router_kw`` goes to ``Router``
+    (``kv_capacity_tokens``, ``block_size``, ``fleet``, ``obs``,
+    ``device``, ...).
 
     LRU recency is rebuilt from insertion order, not copied: after the
     carry-across, chains inserted later count as more recently used, so
@@ -67,4 +74,10 @@ def router_from_numpy_state(policy: Policy, n: int,
             f.log_routed(i, float(t), int(p_tokens))
     f.mark_dirty()
     policy._tie_n = int(tie)
+    if alive is not None:
+        mask = np.asarray(alive, dtype=bool)
+        if mask.shape != (n,):
+            raise ValueError(f"alive must have shape ({n},), "
+                             f"got {mask.shape}")
+        policy.alive = None if bool(mask.all()) else mask.copy()
     return router

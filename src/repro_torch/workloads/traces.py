@@ -9,8 +9,12 @@ is the §5.2 adversarial workload (one long shared prefix in a burst).
 ``trace_stats`` and ``estimate_capacity_qps`` size a simulation's
 request rate from a trace and an ``EngineSpec``.
 
-Only the open-loop generators are ported; closed-loop sessions arrive
-with the closed-loop simulator.
+These generators stamp every arrival when the trace is made (open
+loop): turn ``t+1`` arrives on schedule even while turn ``t`` is still
+queued, which flatters a bad scheduler.  ``make_trace(...,
+closed_loop=True)`` returns deterministic session state machines
+(``repro_torch.workloads.sessions``) instead, to drive with
+``repro_torch.cluster.closed_loop.ClosedLoopSim``.
 """
 from __future__ import annotations
 
@@ -76,11 +80,23 @@ TRACES = tuple(FAMILIES) + ("hotspot",)
 
 # ---------------------------------------------------------------------------
 def make_trace(name: str, qps: float, duration: float,
-               seed: int = 0, closed_loop: bool = False) -> List[Request]:
-    """Open-loop request list for one of ``TRACES``, sorted by arrival."""
+               seed: int = 0, closed_loop: bool = False):
+    """Open-loop request list for one of ``TRACES``, sorted by arrival;
+    or, with ``closed_loop=True``, ``Session`` state machines whose start
+    rate matches this family's session rate at ``qps`` (later turns'
+    arrivals are decided by the driver's feedback loop)."""
     if closed_loop:
-        raise NotImplementedError(
-            "closed-loop sessions are not ported to repro_torch yet")
+        from .sessions import SESSIONS, make_sessions
+        if name == "hotspot":
+            raise ValueError("hotspot is an open-loop adversarial trace; "
+                             "closed-loop families: " +
+                             "/".join(SESSIONS))
+        # offered request qps to a session-start rate, by the session
+        # spec's own turn count and fan-out
+        conv_rate = qps / SESSIONS[name].expected_requests()
+        return make_sessions(name, n_sessions=max(1, int(conv_rate
+                                                         * duration)),
+                             seed=seed, start_rate=conv_rate)
     if name == "hotspot":
         return make_hotspot_trace(qps, duration, seed)
     fam = FAMILIES[name]

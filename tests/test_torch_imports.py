@@ -48,8 +48,38 @@ def test_every_module_imports_without_jax_or_repro():
                 "kernels.mlstm_cell", "models.recurrent",
                 "configs.recurrentgemma_9b", "configs.xlstm_350m",
                 "core.prefix_index", "core.faults", "core.shard_backends",
-                "core.sharded_index", "core.hotspot"):
+                "core.sharded_index", "core.hotspot", "obs",
+                "obs.registry", "obs.trace", "obs.provenance",
+                "core.fleet", "core.overload", "workloads.sessions",
+                "cluster.closed_loop", "configs.qwen3_30b_moe"):
         assert f"repro_torch.{mod}" in names, mod
+
+
+def test_worker_slots_have_one_definition():
+    """The process workers' fixed-slot schema is defined once, beside
+    the backend that writes it; the registry re-exports that tuple."""
+    import repro_torch.core.shard_backends as sb
+    import repro_torch.obs.registry as reg
+    assert reg.WORKER_SLOTS is sb.WORKER_SLOTS
+    assert reg.N_WORKER_SLOTS == sb.N_WORKER_SLOTS == len(sb.WORKER_SLOTS)
+
+
+def test_obs_imports_no_torch():
+    """``repro_torch.obs`` is numpy only: importing it (in a fresh
+    process, so that nothing loaded here counts) loads no torch."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.obs
+        import repro_torch.obs.provenance, repro_torch.obs.trace
+        leaked = [m for m in sys.modules if m.split(".")[0] == "torch"]
+        assert not leaked, leaked[:5]
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():

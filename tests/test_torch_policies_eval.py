@@ -244,9 +244,10 @@ def test_make_policy_builds_every_reference_name(name):
 
 def test_make_policy_needs_and_refusals():
     for name in ("route-then-balance", "rtb"):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP Queue A item 6\)"):
-            tcore.make_policy(name)
+        # built since the fleet is ported; it needs no latency model
+        pol = tcore.make_policy(name)
+        assert isinstance(pol, tcore.RouteThenBalancePolicy)
+        assert pol.name == rcore.make_policy(name).name
     for name in ("llm-d", "polyserve"):
         with pytest.raises(ValueError):
             tcore.make_policy(name)

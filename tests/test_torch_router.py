@@ -109,8 +109,13 @@ def test_trace_matches_reference():
         a = jmake_trace(fam, 6.0, 60.0, seed=3)
         b = make_trace(fam, 6.0, 60.0, seed=3)
         assert [_fields(r) for r in a] == [_fields(r) for r in b], fam
-    with pytest.raises(NotImplementedError):
-        make_trace("chatbot", 1.0, 10.0, closed_loop=True)
+    # the closed-loop escape hatch gives the reference's sessions
+    a = jmake_trace("chatbot", 1.0, 10.0, closed_loop=True)
+    b = make_trace("chatbot", 1.0, 10.0, closed_loop=True)
+    assert [(s.sid, s.start_t, s.turns_total, s.app) for s in a] == \
+        [(s.sid, s.start_t, s.turns_total, s.app) for s in b]
+    assert [_fields(r) for s in a for r in s.start()] == \
+        [_fields(r) for s in b for r in s.start()]
 
 
 #: requests routed per wave size: the whole 2000 in waves of 64, and in
@@ -304,13 +309,17 @@ def test_scores_batch_matches_reference(traces):
         np.testing.assert_array_equal(got, want)
 
 
-def test_unported_options_raise():
-    """Only route-then-balance is left to a later slice: it reads the
-    fleet's capability masks (ROADMAP Queue A item 6)."""
+def test_unported_options_raise(traces):
+    """Every name of the reference builds (route-then-balance came with
+    the fleet); an unknown name raises.  Route-then-balance routes the
+    hotspot trace as the reference's does (host-only: no wave)."""
+    jt, pt = (t[:400] for t in traces)
     for name in ("rtb", "route-then-balance"):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP Queue A item 6\)"):
-            make_policy(name)
+        pol = make_policy(name)
+        assert pol.name == jmake(name).name and pol.batch_kind is None
+        port, ref = _port(name), _ref(name)
+        assert _drive(port, pt, 8, True) == _drive(ref, jt, 8, False)
+        assert port.pipeline.waves == 0
     with pytest.raises(KeyError):
         make_policy("nope")
 

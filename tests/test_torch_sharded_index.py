@@ -389,13 +389,24 @@ def test_route_batch_sharded_equals_flat_and_sequential(traces):
 
 
 def test_paths_of_later_slices_raise():
-    """The factory's fleet and instance-failure entry points raise
-    ``NotImplementedError`` naming their ROADMAP item."""
-    f = tind.IndicatorFactory(4, device="cpu")
-    for item, call in ((6, lambda: tind.IndicatorFactory(4, fleet=object(),
-                                                          device="cpu")),
-                       (6, lambda: f.feasible_mask("qwen2_7b")),
-                       (7, lambda: f.on_instance_failed(1))):
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP Queue A item {item}\)"):
-            call()
+    """The factory's fleet and instance-failure entry points, once left
+    to later slices, now run: a fleet's columns and capability mask
+    (ROADMAP Queue A item 6), and ``on_instance_failed`` (item 7), which
+    removes the instance's column from the sharded index through the
+    shard backend and dirties only its mirror range."""
+    from repro_torch.core.fleet import make_fleet
+    fleet = make_fleet([("qwen3_30b_moe", "fast", 2),
+                        ("qwen2_7b", "slow", 2)])
+    with tind.IndicatorFactory(4, fleet=fleet, n_shards=2,
+                               device="cpu") as f:
+        assert f.model_id.tolist() == [0, 0, 1, 1]
+        assert f.prefill_norm is not None
+        assert f.feasible_mask("qwen2_7b").tolist() == [False, False,
+                                                         True, True]
+        for iid in range(4):
+            f[iid].kv.insert((1, 2, 3))
+        f.device_view()
+        f.on_instance_failed(1)
+        assert f._dirty.tolist() == [True, False]
+        assert f._agg.match_depths((1, 2, 3)).tolist() == [3, 0, 3, 3]
+        assert f.evictions == 1

@@ -15,8 +15,8 @@ the JAX package's, on the CPU.
   One smaller case holds the port against the reference's real
   ``route_batch`` wave path, under the jax 0.9 ``enable_x64`` shim.
 * The trace statistics and metric helpers the simulation reports with.
-* Every path the port leaves to a later slice raises
-  ``NotImplementedError`` naming its ROADMAP item.
+* The paths an earlier slice left raising (fleet, overload control,
+  churn, observability) run, each as the reference's does.
 """
 import collections
 import copy
@@ -42,6 +42,7 @@ import repro_torch.core as tcore  # noqa: E402
 import repro_torch.workloads.traces as ttraces  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import route_score  # noqa: E402
+from repro_torch.obs import validate_events  # noqa: E402
 
 REF_RATES = dict(peak_flops=rlm.PEAK_FLOPS, hbm_bw=rlm.HBM_BW)
 N = 8
@@ -288,37 +289,126 @@ def test_metric_helpers_equal_reference(runs):
     assert tmetrics.fmt_row("x", s) == rmetrics.fmt_row("x", s)
 
 
-# ---- paths left to later slices -----------------------------------------
-def _router(attr=None, on_factory=False):
-    """A two-instance CPU router; ``attr`` set on it (or its factory)
-    stands for a field a later slice adds."""
-    router = tcore.Router(tcore.JSQPolicy(), 2, device="cpu")
-    if attr is not None:
-        setattr(router.factory if on_factory else router, attr, object())
-    return router
+# ---- paths once left to later slices -----------------------------------
+def _tiny(pkg):
+    return quantize(pkg.make_trace("chatbot", qps=6.0, duration=30.0,
+                                   seed=2))
 
 
+def _paths_pair(what):
+    """The port's and the reference's (request-by-request) simulators
+    over 4 instances, set up for path ``what`` the same way, run on the
+    same small trace; returns (port sim, reference sim)."""
+    tspec = tcore.spec_from_config(get_config("qwen2_7b"), **REF_RATES)
+    rspec = rcore.spec_from_config(ref_config("qwen2_7b"))
+    sims = []
+    for pkg, sim_mod, spec, traces, extra in (
+            (tcore, tsim, tspec, ttraces, {"device": "cpu"}),
+            (rcore, rsim, rspec, rtraces, {})):
+        kw = {}
+        if what == "obs":
+            obs_mod = (__import__("repro_torch.obs", fromlist=["make_obs"])
+                       if pkg is tcore else
+                       __import__("repro.obs", fromlist=["make_obs"]))
+            kw["obs"] = obs_mod.make_obs(metrics=True, trace=True,
+                                         provenance=True)
+        n = 4
+        if what == "fleet":
+            fleet = (sim_mod.make_mixed_fleet(mix=(
+                ("qwen3_30b_moe", "fast", 2), ("qwen2_7b", "slow", 2)),
+                **(REF_RATES if pkg is tcore else {})))
+            kw["fleet"] = fleet
+        router = pkg.Router(pkg.make_policy("lmetric"), n,
+                            kv_capacity_tokens=200_000, **kw, **extra)
+        if pkg is rcore:
+            router.route_batch = lambda reqs, now, _r=router: [
+                _r.route(q, now) for q in reqs]
+        overload = (pkg.OverloadControl(admission=True, retraction=True)
+                    if what in ("overload", "overload_stats") else None)
+        sim = sim_mod.ClusterSim(router, spec, pkg.LatencyModel(spec),
+                                 overload=overload)
+        if what in ("fail_at", "recover_at"):
+            sim.fail_at(8.0, 1)
+        if what in ("drain_at", "recover_at"):
+            sim.drain_at(10.0, 2)
+        if what == "recover_at":
+            sim.recover_at(15.0, 1)
+            sim.recover_at(18.0, 2)
+        sim.run(_tiny(traces))
+        sims.append(sim)
+    return sims
+
+
+def _same_run(port, ref):
+    assert finished(port.finished) == finished(ref.finished)
+    assert [(r.rid, r.drop_reason) for r in port.dropped] == \
+        [(r.rid, r.drop_reason) for r in ref.dropped]
+    assert port.churn_events == ref.churn_events
+    assert port.overload_stats() == ref.overload_stats()
+    return port
+
+
+def _check_snapshot(port, ref):
+    """The snapshots' counters agree but for wall-clock nanoseconds and
+    the pipeline's (the reference here routes request by request)."""
+    snap, rsnap = port.metrics_snapshot(), ref.metrics_snapshot()
+
+    def same(c):
+        return {k: v for k, v in c.items()
+                if not k.endswith("_ns") and not k.startswith("pipeline.")}
+    assert same(snap["counters"]) == same(rsnap["counters"])
+    assert port.router.pipeline.waves == multi_waves(_tiny(ttraces)) > 0
+    assert snap["counters"]["sim.finished"] == len(port.finished)
+
+
+def _check_obs(port, ref):
+    _same_run(port, ref)
+    _check_snapshot(port, ref)
+    assert port.router.obs.provenance.records == \
+        ref.router.obs.provenance.records
+    # the reference routes request by request here, so its trace holds
+    # no wave spans; the port's holds one tree for every 8th wave
+    events = port.router.obs.tracer.to_json()["traceEvents"]
+    validate_events(events)
+    waves = port.router.pipeline.waves
+    assert sum(1 for e in events if e["name"] == "wave") == \
+        2 * ((waves + 7) // 8) > 0
+
+
+def _check_fleet(port, ref):
+    _same_run(port, ref)
+    assert port.instances[0].model is not port.instances[3].model
+    assert port._admission is not None
+
+
+#: each path a former slice left raising ``NotImplementedError`` (with
+#: its ROADMAP Queue A item), and the check its run now passes
 NOT_PORTED = {
-    "fail_at": (7, lambda s: tsim.ClusterSim(_router(), s).fail_at(1.0, 0)),
-    "drain_at": (7, lambda s: tsim.ClusterSim(_router(), s).drain_at(1.0,
-                                                                     0)),
-    "recover_at": (7, lambda s: tsim.ClusterSim(_router(), s)
-                   .recover_at(1.0, 0)),
-    "overload_stats": (7, lambda s: tsim.ClusterSim(_router(), s)
-                       .overload_stats()),
-    "overload": (7, lambda s: tsim.ClusterSim(_router(), s,
-                                              overload=object())),
-    "metrics_snapshot": (5, lambda s: tsim.ClusterSim(_router(), s)
-                         .metrics_snapshot()),
-    "obs": (5, lambda s: tsim.ClusterSim(_router("obs"), s)),
-    "fleet": (6, lambda s: tsim.ClusterSim(_router("fleet", True), s)),
-    "make_mixed_fleet": (6, lambda s: tsim.make_mixed_fleet()),
+    "fail_at": (7, lambda p, r: _same_run(p, r).churn_recovery
+                == r.churn_recovery),
+    "drain_at": (7, lambda p, r: _same_run(p, r).churn_events[0]["kind"]
+                 == "drain"),
+    "recover_at": (7, lambda p, r: _same_run(p, r).router.policy.alive
+                   is None),
+    "overload_stats": (7, lambda p, r: set(_same_run(p, r)
+                                           .overload_stats())
+                       == set(r.overload_stats())),
+    "overload": (7, lambda p, r: _same_run(p, r).overload.admission),
+    "metrics_snapshot": (5, lambda p, r: _check_snapshot(p, r) is None),
+    "obs": (5, lambda p, r: _check_obs(p, r) is None),
+    "fleet": (6, lambda p, r: _check_fleet(p, r) is None),
+    "make_mixed_fleet": (6, lambda p, r: tsim.make_mixed_fleet(
+        **REF_RATES).prefill_norm.tolist()
+        == rsim.make_mixed_fleet().prefill_norm.tolist()),
 }
 
 
 @pytest.mark.parametrize("what", list(NOT_PORTED))
 def test_not_ported_paths_raise(what, spec):
-    item, call = NOT_PORTED[what]
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue A item {item}\)"):
-        call(spec)
+    """Formerly: each path raised ``NotImplementedError`` naming its
+    ROADMAP Queue A item (5 observability, 6 fleets, 7 overload control
+    and churn).  Now each runs, and its run equals the reference's."""
+    item, check = NOT_PORTED[what]
+    assert item in (5, 6, 7)
+    port, ref = _paths_pair(what)
+    assert check(port, ref)
