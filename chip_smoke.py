@@ -41,7 +41,10 @@ Phases (each raises on failure, so any failure exits nonzero):
    at offsets 0 and 3072, a ragged 300-token chunk, a windowed chunk) and
    ``paged_attention`` (8 sequences, page 16, contexts up to 4096, block
    tables from the ported ``BlockManager`` with shared prefix pages) at
-   Qwen2-7B widths, in float32 and bfloat16, within ``ATTN_TOL``;
+   Qwen2-7B widths, then one chunk and one decode step each at the MoE
+   models' widths (Qwen3-30B-A3B: 32 q over 4 KV heads, hd 128;
+   Granite-MoE: 24 over 8, hd 64) and with soft-capped scores
+   (``ATTN_WIDTHS``), in float32 and bfloat16, within ``ATTN_TOL``;
 6. serving path — Qwen2-7B at full width and depth (random bf16 weights
    from a seeded generator on the card), 4 ``InstanceEngine``s under the
    LMetric ``EngineCluster`` serve 32 requests (four 1024-token system
@@ -160,14 +163,30 @@ Phases (each raises on failure, so any failure exits nonzero):
    x ``bench_overload``'s start rates, no control and admission +
    retraction, the last with a failure, == its CPU run;
    ``summarize`` with the interference block, ``overload_summary``) and
-   a closed-loop PD run of 100 chatbot sessions.
+   a closed-loop PD run of 100 chatbot sessions;
+16. MoE serving — Qwen3-30B-A3B, the paper's MoE testbed, at full width
+   and depth (48 layers, 128 experts, top-8; 30.53 B parameters, 61.06 GB
+   in bf16, random weights from a seeded generator on the card) with
+   phase 6's engine settings and workload (32 requests), then
+   Granite-MoE-3B-A800M (32 layers, hd 64, 40 experts, 16 requests), at
+   the published capacity factor 1.25: every request finishes, the
+   attention launches equal 48 (32) per chunk and per decode step,
+   requests placed with their system prompt report a hit of it, prefill
+   is really skipped; then the logit check on a fresh engine at capacity
+   factor E / K, where nothing drops at any chunking
+   (``moe_logit_check``: bf16 at full depth if the model's own bf16 noise
+   floor is within the tolerances, else float32 on a depth cut); prints
+   the memory (weights, caches, peak, and the reckoning from
+   ``param_count``), TTFT / TPOT, prefill tokens/s, chunk and decode
+   medians and the decode-step floor (all weights read per step).
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed),
 then phase 14's requests, then the requests of each of phase 13's
 comparison runs (never below 500), then phase 15's closed-loop sessions
-(halved); the recurrent paths keep their width
-and depth, no run is dropped, and no path keeps fewer instances.  Shard
+(halved), then Granite-MoE's requests (to 8); the recurrent and MoE
+paths keep their width and depth, no run is dropped, and no path keeps
+fewer instances.  Shard
 workers are spawned processes that re-import this file as their main
 module, which is why it imports ``torch`` only inside ``main()``.
 
@@ -690,9 +709,18 @@ def manager_tables(torch, rng, dev):
     return bt, ctx, bm.stats()["shared"]
 
 
+#: phase 5's widths beyond Qwen2-7B's (q heads, KV heads, head dim, score
+#: soft cap): Qwen3-30B-A3B (G = 8) and Granite-MoE-3B (hd 64, G = 3), as
+#: phase 16 serves them, and the soft-capped scores of a config with
+#: ``logit_soft_cap`` (no served model sets it), each on one 512-token
+#: chunk over 1024 cached keys and one decode step of 8 sequences
+ATTN_WIDTHS = [(32, 4, 128, 0.0), (24, 8, 64, 0.0), (32, 4, 128, 2.0)]
+
+
 def check_attention(torch):
     """Phase 5: both attention kernels against their plain versions on the
-    card at Qwen2-7B widths, in float32 and bfloat16."""
+    card at Qwen2-7B widths, then at ``ATTN_WIDTHS``, in float32 and
+    bfloat16."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import prefill_attention as fp
     dev = torch.device("cuda")
@@ -704,32 +732,37 @@ def check_attention(torch):
 
     worst = {"prefill_attention": 0.0, "paged_attention": 0.0}
     report = []
+    cases = [(H_Q, H_KV, HEAD_DIM, 0.0, chunk) for chunk in (
+        (512, 0, None), (512, 3072, None), (300, 1000, None),
+        (512, 1024, 256))] + [w + ((512, 1024, None),) for w in ATTN_WIDTHS]
     for name in ("float32", "bfloat16"):
         dtype = getattr(torch, name)
-        for Sq, off, window in ((512, 0, None), (512, 3072, None),
-                                (300, 1000, None), (512, 1024, 256)):
-            q = rand((1, Sq, H_Q, HEAD_DIM), dtype, ATTN_Q_SCALE[name])
-            k = rand((1, off + Sq, H_KV, HEAD_DIM), dtype)
-            v = rand((1, off + Sq, H_KV, HEAD_DIM), dtype)
+        for H, KV, hd, cap, (Sq, off, window) in cases:
+            q = rand((1, Sq, H, hd), dtype, ATTN_Q_SCALE[name])
+            k = rand((1, off + Sq, KV, hd), dtype)
+            v = rand((1, off + Sq, KV, hd), dtype)
             offs = torch.full((1,), off, dtype=torch.int32, device=dev)
-            got = fp.flash_prefill(q, k, v, offs, window)
-            want = fp.flash_prefill_plain(q, k, v, offs, window)
+            got = fp.flash_prefill(q, k, v, offs, window, cap)
+            want = fp.flash_prefill_plain(q, k, v, offs, window, cap)
             torch.cuda.synchronize()
-            err = _attn_err(got, want, name, f"prefill {name} Sq={Sq} "
-                            f"off={off} window={window}", report)
+            err = _attn_err(got, want, name, f"prefill {name} {H}/{KV} "
+                            f"hd {hd} Sq={Sq} off={off} window={window} "
+                            f"soft cap {cap}", report)
             worst["prefill_attention"] = max(worst["prefill_attention"], err)
-        bt, ctx, shared = manager_tables(torch, rng, dev)
-        n_pages = 8 * MAX_LEN // KV_BLOCK
-        kp = rand((n_pages, KV_BLOCK, H_KV, HEAD_DIM), dtype)
-        vp = rand((n_pages, KV_BLOCK, H_KV, HEAD_DIM), dtype)
-        q = rand((8, H_Q, HEAD_DIM), dtype, ATTN_Q_SCALE[name])
-        got = pa.paged_attention(q, kp, vp, bt, ctx)
-        want = pa.paged_attention_plain(q, kp, vp, bt, ctx)
-        torch.cuda.synchronize()
-        err = _attn_err(got, want, name, f"paged {name} B=8 page={KV_BLOCK} "
-                        f"contexts {ctx.tolist()} ({shared} shared pages)",
-                        report)
-        worst["paged_attention"] = max(worst["paged_attention"], err)
+        for H, KV, hd, cap in [(H_Q, H_KV, HEAD_DIM, 0.0)] + ATTN_WIDTHS:
+            bt, ctx, shared = manager_tables(torch, rng, dev)
+            n_pages = 8 * MAX_LEN // KV_BLOCK
+            kp = rand((n_pages, KV_BLOCK, KV, hd), dtype)
+            vp = rand((n_pages, KV_BLOCK, KV, hd), dtype)
+            q = rand((8, H, hd), dtype, ATTN_Q_SCALE[name])
+            got = pa.paged_attention(q, kp, vp, bt, ctx, cap)
+            want = pa.paged_attention_plain(q, kp, vp, bt, ctx, cap)
+            torch.cuda.synchronize()
+            err = _attn_err(got, want, name, f"paged {name} {H}/{KV} hd {hd} "
+                            f"soft cap {cap} B=8 page={KV_BLOCK} contexts "
+                            f"{ctx.tolist()} ({shared} shared pages)",
+                            report)
+            worst["paged_attention"] = max(worst["paged_attention"], err)
     return worst, report
 
 
@@ -747,7 +780,21 @@ WORKLOADS = {
                               opener=0, align=KV_BLOCK),
     "xlstm_350m": dict(n=16, groups=2, suffix=(128, 768), out=16, opener=0,
                        align=KV_BLOCK),
+    "qwen3_30b_moe": dict(n=N_SERVE, groups=4, suffix=SUFFIX, out=OUT_TOKENS,
+                          opener=8, align=1),
+    "granite_moe_3b_a800m": dict(n=16, groups=4, suffix=SUFFIX,
+                                 out=OUT_TOKENS, opener=8, align=1),
 }
+#: phase 16: the MoE models served at full width and depth; past
+#: MOE_CUT_AFTER_S Granite-MoE serves MOE_CUT_REQUESTS requests (never
+#: fewer layers or a narrower Qwen3-30B-A3B)
+MOE_ARCHS = ("qwen3_30b_moe", "granite_moe_3b_a800m")
+MOE_CUT_AFTER_S, MOE_CUT_REQUESTS = 1000.0, 8
+#: phase 16's float32 logit check, if a MoE model's bf16 noise floor
+#: exceeds the tolerances: float32 at full depth where it fits in
+#: MOE_F32_BYTES, else the first MOE_F32_LAYERS layers (Qwen3-30B-A3B in
+#: float32 is 122 GB; 8 of its 48 layers are ~22 GB)
+MOE_F32_BYTES, MOE_F32_LAYERS = 40e9, 8
 
 
 def serving_requests(vocab, w=WORKLOADS["qwen2_7b"]):
@@ -771,6 +818,14 @@ def serving_requests(vocab, w=WORKLOADS["qwen2_7b"]):
         arrivals.append((t, toks.astype(np.int32), w["out"]))
         groups.append(g)
     return arrivals, groups, prefixes
+
+
+def check_prompt(served, vocab):
+    """The logit check's follow-up turn: a served prompt plus 700 new
+    tokens (seeded)."""
+    rng = np.random.RandomState(SEED + 1)
+    return np.concatenate([served, rng.randint(0, vocab, 700)]).astype(
+        np.int32)
 
 
 def logits_vs_plain(torch, engines, model, params, arrivals,
@@ -797,9 +852,7 @@ def logits_vs_plain(torch, engines, model, params, arrivals,
     if pick is None:
         raise AssertionError("no engine holds a served prompt's fragment")
     eng, served = pick
-    rng = np.random.RandomState(SEED + 1)
-    prompt = np.concatenate([served, rng.randint(
-        0, model.cfg.vocab_size, 700)]).astype(np.int32)
+    prompt = check_prompt(served, model.cfg.vocab_size)
     got = []                # each engine step's logits
     pre, dec = eng._prefill, eng._decode
 
@@ -865,19 +918,15 @@ def embedding_sensitivity(torch, model, params, prompt):
             float(d.square().mean().sqrt() / base.square().mean().sqrt()))
 
 
-def f32_logit_check(torch, model, params, arrivals):
-    """The logit check in float32: the bf16 model's weights widened, one
-    fresh engine of the same settings serves the last arrival's prompt
-    (block-aligned, so its stored state is exact), then its follow-up
-    turn is held to the f32 plain forward within ``LOGIT_F32``."""
-    import dataclasses
+def fresh_logit_check(torch, model, params, arrivals, tol):
+    """The logit check on one fresh engine of phase 6's settings over
+    ``model`` (a replaced config of the served one): it serves the last
+    arrival's prompt (block-aligned for the recurrent paths, so that its
+    stored state is exact), then its follow-up turn is held to the plain
+    forward of ``model`` within ``tol``."""
     from repro_torch.core import Request
-    from repro_torch.models import Model
     from repro_torch.serving.engine import InstanceEngine
-    m32 = Model(dataclasses.replace(model.cfg, dtype="float32"),
-                device=model.device)
-    p32 = _cast(params, torch.float32)
-    eng = InstanceEngine(m32, p32, max_batch=2, max_len=MAX_LEN,
+    eng = InstanceEngine(model, params, max_batch=2, max_len=MAX_LEN,
                          chunk_tokens=CHUNK, block_size=KV_BLOCK,
                          prefix_capacity=PREFIX_CAPACITY,
                          device=model.device)
@@ -886,7 +935,69 @@ def f32_logit_check(torch, model, params, arrivals):
                        prompt_len=len(served), output_len=1), served)
     while eng.has_work():
         eng.step()
-    return logits_vs_plain(torch, [eng], m32, p32, [arrivals[-1]], LOGIT_F32)
+    return logits_vs_plain(torch, [eng], model, params, [arrivals[-1]], tol)
+
+
+def f32_logit_check(torch, model, params, arrivals):
+    """The logit check in float32: the bf16 model's weights widened, held
+    within ``LOGIT_F32``."""
+    import dataclasses
+    from repro_torch.models import Model
+    m32 = Model(dataclasses.replace(model.cfg, dtype="float32"),
+                device=model.device)
+    return fresh_logit_check(torch, m32, _cast(params, torch.float32),
+                             arrivals, LOGIT_F32)
+
+
+def moe_logit_check(torch, cluster, model, params, arrivals):
+    """Phase 16's logit check.  A MoE layer's capacity is computed per
+    call, so at the published factor a 512-token chunk drops other
+    choices than the full forward (ROADMAP Queue C.12: the reference's
+    semantics).  So the cluster's caches are freed and the check runs on
+    a fresh engine whose config takes ``capacity_factor = n_experts /
+    top_k`` (cap >= S at every call: nothing drops at any chunking), the
+    same weights.  First the model's own bf16 noise floor over the
+    check's prompt (``embedding_sensitivity``); if it exceeds
+    (``LOGIT_ATOL``, ``LOGIT_REL_RMS``) -- rounding flips near-tied
+    experts -- the bf16 weights are dropped (``params`` is emptied) and
+    the check runs in float32 (``LOGIT_F32``) on weights drawn from the
+    same seed, at full depth where that fits in ``MOE_F32_BYTES``, else
+    on the first ``MOE_F32_LAYERS`` layers.  Returns (checks, what was
+    held and why)."""
+    import dataclasses
+    from repro_torch.models import Model
+    cfg = model.cfg
+    for eng in cluster.engines:
+        eng.cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    nodrop = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    m = Model(nodrop, device=model.device)
+    _, served, _ = arrivals[-1]
+    floor = embedding_sensitivity(torch, m, params,
+                                  check_prompt(served, cfg.vocab_size))
+    what = (f"capacity factor {nodrop.capacity_factor:g} (nothing drops); "
+            f"bf16 noise floor max {floor[0]:.4f}, RMS ratio {floor[1]:.4f}")
+    if floor[0] <= LOGIT_ATOL and floor[1] <= LOGIT_REL_RMS:
+        return (fresh_logit_check(torch, m, params, arrivals,
+                                  (LOGIT_ATOL, LOGIT_REL_RMS)),
+                what + f" within ({LOGIT_ATOL}, {LOGIT_REL_RMS}): bf16 at "
+                f"full depth")
+    layers = cfg.n_layers if cfg.param_count() * 4 <= MOE_F32_BYTES \
+        else min(MOE_F32_LAYERS, cfg.n_layers)
+    params.clear()
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(nodrop, dtype="float32", n_layers=layers,
+                                block_pattern=cfg.block_pattern[:layers])
+    m32 = Model(cfg32, device=model.device)
+    p32 = m32.init(torch.Generator(device=model.device).manual_seed(SEED))
+    return (fresh_logit_check(torch, m32, p32, arrivals, LOGIT_F32),
+            what + f" above ({LOGIT_ATOL}, {LOGIT_REL_RMS}): float32 on "
+            f"{layers} of {cfg.n_layers} layers (float32 at full depth is "
+            f"{cfg.param_count() * 4 / 1e9:.1f} GB)")
 
 
 def _launch_counters():
@@ -918,11 +1029,12 @@ def expected_launches(cfg, chunks, decodes, on_card):
                                               for n in sizes)}
 
 
-def serving_path(torch, arch="qwen2_7b", device="cuda", n_layers=None):
-    """Phases 6, 10 and 11: ``arch`` at full width (``n_layers`` cuts the
-    depth of a dense model, never of a recurrent one), 4 engines under
-    the LMetric router, the requests of ``WORKLOADS[arch]``.  Returns the
-    numbers to print.
+def serving_path(torch, arch="qwen2_7b", device="cuda", n_layers=None,
+                 n_req=None):
+    """Phases 6, 10, 11 and 16: ``arch`` at full width (``n_layers`` cuts
+    the depth of a dense model, never of a recurrent one), 4 engines under
+    the LMetric router, the requests of ``WORKLOADS[arch]`` (the first
+    ``n_req`` if given).  Returns the numbers to print.
 
     ``arch="<id>-smoke", device="cpu"`` rehearses the same path on the
     CPU with the kernels' plain versions (no launches are counted
@@ -940,6 +1052,8 @@ def serving_path(torch, arch="qwen2_7b", device="cuda", n_layers=None):
         cfg = dataclasses.replace(cfg, n_layers=n_layers,
                                   block_pattern=cfg.block_pattern[:n_layers])
     w = WORKLOADS[arch.replace("-smoke", "")]
+    if n_req is not None:
+        w = dict(w, n=min(n_req, w["n"]))
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
@@ -1013,11 +1127,15 @@ def serving_path(torch, arch="qwen2_7b", device="cuda", n_layers=None):
     computed = sum(s[2] for s in chunks)
     if prompt_tokens - computed < SYS_PREFIX:
         raise AssertionError("no prefill was skipped by a KV$ fragment")
+    check_note = None
     if arch.startswith("xlstm"):
         # xLSTM-350M with random weights is chaotic in bf16 (one ulp in 1%
         # of its embeddings moves its own logits by an RMS ratio of ~0.8,
         # ``--profile``), so its engine is held to the plain forward in f32
         logit_checks = f32_logit_check(torch, model, params, arrivals)
+    elif cfg.n_experts:
+        logit_checks, check_note = moe_logit_check(torch, cluster, model,
+                                                   params, arrivals)
     else:
         logit_checks = logits_vs_plain(torch, cluster.engines, model,
                                        params, arrivals)
@@ -1027,7 +1145,7 @@ def serving_path(torch, arch="qwen2_7b", device="cuda", n_layers=None):
            "prompt_tokens": prompt_tokens, "computed_tokens": computed,
            "hit_tokens": sum(r.hit_tokens for r in done), "peak": peak,
            "mem_weights": mem_weights, "mem_engines": mem_engines,
-           "logit_checks": logit_checks,
+           "logit_checks": logit_checks, "check_note": check_note,
            "placed_hot": hot, "placed_cold": cold,
            "exact_only": exact_only,
            "instances": collections.Counter(r.sched_to for r in done)}
@@ -1602,7 +1720,7 @@ def time_recurrent(torch):
 
 
 def report_serving(gpu, sv):
-    """Print one serving path's numbers (phases 6, 10, 11)."""
+    """Print one serving path's numbers (phases 6, 10, 11, 16)."""
     s = sv["summary"]
     cfg = sv["cfg"]
     tag = f"[{gpu}] serving {cfg.name}:"
@@ -1646,9 +1764,32 @@ def report_serving(gpu, sv):
           f"{sv['mem_weights'] / 2 ** 30:.2f} GiB, with the engines' caches "
           f"{sv['mem_engines'] / 2 ** 30:.2f} GiB, peak while serving "
           f"{sv['peak'] / 2 ** 30:.2f} GiB")
+    weights = cfg.param_count() * 2
+    line = (f"{tag} reckoned from param_count: {cfg.param_count() / 1e9:.2f} "
+            f"B parameters, {weights / 1e9:.2f} GB ({weights / 2 ** 30:.2f} "
+            f"GiB) of bf16 weights")
+    if set(cfg.block_pattern) == {"attn"}:
+        kv = (ENGINES * MAX_BATCH * MAX_LEN * cfg.n_layers * 2
+              * cfg.n_kv_heads * cfg.resolved_head_dim * 2)
+        line += (f", KV caches {ENGINES} x {MAX_BATCH} x {MAX_LEN} x "
+                 f"{cfg.n_layers} layers x 2 x {cfg.n_kv_heads} x "
+                 f"{cfg.resolved_head_dim} x 2 B = {kv / 1e9:.2f} GB "
+                 f"({kv / 2 ** 30:.2f} GiB)")
+    print(line)
+    print(f"{tag} decode-step floor: every step reads all "
+          f"{sv['n_params'] * 2 / 1e9:.2f} GB of weights"
+          + (f" (the dispatch runs all {cfg.n_experts} experts' products)"
+             if cfg.n_experts else "")
+          + f": {sv['n_params'] * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; measured median "
+          f"{med(dec_ms):.2f} ms"
+          + (f" ({med(full):.2f} with all {MAX_BATCH} slots running)"
+             if full else ""))
     print(f"{tag} kernel launches {sv['launches']} (expected, from "
           f"{len(sv['chunks'])} chunks, {len(sv['decodes'])} decode steps "
           f"and {ENGINES} warm-ups)")
+    if sv["check_note"]:
+        print(f"{tag} logit check: {sv['check_note']}")
     for c in sv["logit_checks"]:
         print(f"{tag} engine (hit {c['hit']} tokens) vs plain full "
               f"forward, {c['dtype']}, step {c['step']}: max |dlogit| "
@@ -3359,7 +3500,8 @@ def main() -> int:
             + (f" ({min(ipt, rs.REG_IPT)} in registers, the rest in "
                f"global scratch)" if ipt > rs.REG_IPT else "")))
     if "--profile" in sys.argv[1:]:
-        for arch in ("qwen2_7b", "recurrentgemma_9b", "xlstm_350m"):
+        for arch in ("qwen2_7b", "recurrentgemma_9b", "xlstm_350m") \
+                + MOE_ARCHS:
             profile_steps(torch, gpu, arch)
         return 0
 
@@ -3525,6 +3667,22 @@ def main() -> int:
     ctrl = control_path(sim, "cuda", cl_cut=cl_cut)
     report_control(gpu, ctrl)
     print(f"[{gpu}] control plane: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 16: MoE serving -----------------------------------------
+    for arch in MOE_ARCHS:
+        n_moe = None
+        if arch != "qwen3_30b_moe" and \
+                time.perf_counter() - t_start > MOE_CUT_AFTER_S:
+            n_moe = MOE_CUT_REQUESTS
+            print(f"MoE serving: {arch} cut to {n_moe} requests to stay "
+                  f"within the time limit (width and depth unchanged)")
+        t0 = time.perf_counter()
+        sv = serving_path(torch, arch, n_req=n_moe)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report_serving(gpu, sv)
+        print(f"[{gpu}] MoE serving {arch}: {time.perf_counter() - t0:.1f} s")
+        served[arch] = sv
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]

@@ -1,17 +1,16 @@
 """Architecture configs — port of ``repro.configs``.
 
 Each submodule exports ``config() -> ModelConfig`` with the reference's
-hyper-parameters.  ``get_config(name)`` resolves by id; the ``-smoke``
-suffix gives the reduced smoke-test variant.  The port carries the
-models its engine serves: the paper's Qwen2-7B testbed, Qwen3-4B
-(qk-norm, tied embeddings), whose smoke variant the reference's engine
-tests use, and the two recurrent families, RecurrentGemma-9B (RG-LRU and
-sliding-window attention) and xLSTM-350M (mLSTM and sLSTM); and the
-paper's MoE testbed Qwen3-30B-A3B, whose config the heterogeneous fleet
-and the simulator read (``core.fleet``) but which ``Model`` refuses:
-MoE layers are not ported yet.  Every other id of the reference raises
-``NotImplementedError``: its block kinds or experts are not ported yet
-(ROADMAP Queue A).
+hyper-parameters.  ``get_config(name)`` resolves by id, as the
+reference does: the ``-swa`` suffix gives the sliding-window variant
+(every ``attn`` block becomes ``swa``, window 4096), the ``-smoke``
+suffix the reduced smoke-test variant.  The port carries every
+decoder-only model of the reference: the paper's testbeds Qwen2-7B and
+Qwen3-30B-A3B (MoE), Qwen3-4B, Yi-6B, MiniCPM-2B, DeepSeek-67B,
+PaliGemma-3B (patch-embedding inputs), the MoE models Granite-MoE-3B and
+Arctic-480B (a dense residual FFN beside the experts), and the recurrent
+families RecurrentGemma-9B and xLSTM-350M.  Whisper-medium, the one
+encoder-decoder, raises ``NotImplementedError`` (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -19,12 +18,12 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ("qwen2_7b", "qwen3_4b", "recurrentgemma_9b", "xlstm_350m",
-            "qwen3_30b_moe")
+ARCH_IDS = ("xlstm_350m", "paligemma_3b", "yi_6b", "recurrentgemma_9b",
+            "deepseek_67b", "arctic_480b", "granite_moe_3b_a800m",
+            "minicpm_2b", "qwen3_4b", "qwen2_7b", "qwen3_30b_moe")
 
 #: ids of the reference that the port does not serve yet
-NOT_PORTED = ("paligemma_3b", "yi_6b", "whisper_medium", "deepseek_67b",
-              "arctic_480b", "granite_moe_3b_a800m", "minicpm_2b")
+NOT_PORTED = ("whisper_medium",)
 
 
 def _norm(name: str) -> str:
@@ -36,11 +35,16 @@ def get_config(name: str) -> ModelConfig:
     smoke = name.endswith("_smoke")
     if smoke:
         name = name[: -len("_smoke")]
-    if name.endswith("_swa") or name in NOT_PORTED:
+    swa = name.endswith("_swa")
+    if swa:
+        name = name[: -len("_swa")]
+    if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet; see ROADMAP.md "
             f"Queue A (ported: {ARCH_IDS})")
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     cfg = importlib.import_module(f"repro_torch.configs.{name}").config()
+    if swa:
+        cfg = cfg.with_sliding_window()
     return cfg.reduced() if smoke else cfg

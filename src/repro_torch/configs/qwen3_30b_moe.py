@@ -1,7 +1,7 @@
 """Qwen3-30B-A3B MoE — the paper's MoE testbed model (§4.1); port of
-``repro.configs.qwen3_30b_moe``.  The simulator and the fleet read its
-shapes (``spec_from_config``); ``Model`` does not serve it yet (no MoE
-layers).
+``repro.configs.qwen3_30b_moe``.  ``Model`` serves it (48 layers of
+attention and a 128-expert top-8 MoE FFN), and the simulator and the
+fleet read its shapes (``spec_from_config``).
 """
 from repro_torch.models.config import ModelConfig, dense_pattern
 

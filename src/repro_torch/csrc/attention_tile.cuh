@@ -191,13 +191,14 @@ __device__ __forceinline__ void load_q(const T* row0, const T* row1,
 // Fold one tile of NK keys (shared memory, [NK][HD+8] bf16, hi and, for
 // SPLIT, lo) into the warp's state.  mask(h, key) says whether the
 // thread's row of half h sees key `key` (0 .. NK-1) of the tile.  Scores
-// are scaled after the QK product; masked scores are NEG_INF, as in the
-// TPU kernels.
+// are scaled after the QK product and, with cap > 0, soft-capped to
+// cap * tanh(score / cap); masked scores are NEG_INF, as in the TPU
+// kernels.
 template <int HD, int NK, bool SPLIT, class Mask>
 __device__ __forceinline__ void tile_update(
     const uint32_t (&qa)[HD / 16][4], const uint32_t (&ql)[HD / 16][4],
     const bf16* Kh, const bf16* Kl, const bf16* Vh, const bf16* Vl,
-    float scale, Mask mask, RowState<HD>& st) {
+    float scale, float cap, Mask mask, RowState<HD>& st) {
   constexpr int LD = HD + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
 
@@ -230,6 +231,7 @@ __device__ __forceinline__ void tile_update(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[nt][e] * scale;
+      if (cap > 0.f) x = cap * tanhf(x / cap);
       if (!mask(e >> 1, nt * 8 + 2 * c + (e & 1))) x = NEG_INF;
       s[nt][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);

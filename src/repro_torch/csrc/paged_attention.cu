@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(NW * 32)
                  const int* __restrict__ context_lens, T* __restrict__ out,
                  float* __restrict__ part, int* __restrict__ counters,
                  int H, int KV, int page, int pages_per_seq, float scale,
-                 int splits) {
+                 float cap, int splits) {
   constexpr bool SPLIT = Elem<T>::SPLIT;
   constexpr int LD = HD + 8;
   constexpr int PLANE = NK * LD;
@@ -197,8 +197,8 @@ __global__ void __launch_bounds__(NW * 32)
     auto mask = [&](int, int key) { return t * NK + key < ctx; };
     attn::tile_update<HD, NK, SPLIT>(qa, ql, st, st + PLANE,
                                      st + NPL * PLANE,
-                                     st + NPL * PLANE + PLANE, scale, mask,
-                                     state);
+                                     st + NPL * PLANE + PLANE, scale, cap,
+                                     mask, state);
     __syncwarp();
   }
   state.reduce_l();
@@ -426,7 +426,7 @@ template <int HD, typename T>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* ctx, void* out, float* part, int* counters, int B,
            int H, int KV, int page, int pages_per_seq, float scale,
-           int splits, cudaStream_t stream) {
+           float cap, int splits, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD, T>();
   cudaError_t err = cudaFuncSetAttribute(
       paged_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -437,7 +437,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
   paged_kernel<HD, T><<<grid, NW * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), bt, ctx, static_cast<T*>(out), part,
-      counters, H, KV, page, pages_per_seq, scale, splits);
+      counters, H, KV, page, pages_per_seq, scale, cap, splits);
   return (int)cudaGetLastError();
 }
 
@@ -450,7 +450,9 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
 // splits > 1, part holds tiles * (splits + ceil(splits / 8)) * 16 *
 // (hd + 2) floats of scratch (tiles = B * KV * ceil(G/16)) and counters
 // tiles * 16 ints, zero before the first launch (each launch leaves them
-// zero); launches that share them must be ordered on one stream.  Returns a cudaError_t (0 on
+// zero); launches that share them must be ordered on one stream.
+// soft_cap > 0: scores become soft_cap * tanh(score / soft_cap) before
+// the softmax; 0: none.  Returns a cudaError_t (0 on
 // success); -1 for an unsupported dtype, head dim or split count.
 extern "C" int paged_attention_launch(int dtype, int hd, const void* q,
                                       const void* k_pages,
@@ -460,13 +462,14 @@ extern "C" int paged_attention_launch(int dtype, int hd, const void* q,
                                       float* part, int* counters, int B,
                                       int H, int KV, int page,
                                       int pages_per_seq, float scale,
-                                      int splits, cudaStream_t stream) {
+                                      float soft_cap, int splits,
+                                      cudaStream_t stream) {
   if (B == 0) return 0;
   if (splits < 1 || splits > MAX_SPLITS) return -1;
 #define PAGED_LAUNCH(HD, T)                                                  \
   return launch<HD, T>(q, k_pages, v_pages, block_tables, context_lens, out, \
                        part, counters, B, H, KV, page, pages_per_seq, scale, \
-                       splits, stream)
+                       soft_cap, splits, stream)
   if (dtype == 1 && hd == 256) PAGED_LAUNCH(256, bf16);
   if (dtype == 1 && hd == 128) PAGED_LAUNCH(128, bf16);
   if (dtype == 1 && hd == 64) PAGED_LAUNCH(64, bf16);

@@ -89,7 +89,8 @@ __global__ void __launch_bounds__(NW * 32)
     prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ kv_offset,
                    T* __restrict__ out, int Sq, int Sk, int H, int KV,
-                   long long kv_bstride, int window, float scale) {
+                   long long kv_bstride, int window, float scale,
+                   float cap) {
   constexpr bool SPLIT = Elem<T>::SPLIT;
   constexpr int BK = key_tile<HD>();
   constexpr int LD = HD + 8;
@@ -172,8 +173,8 @@ __global__ void __launch_bounds__(NW * 32)
     };
     attn::tile_update<HD, BK, SPLIT>(qa, ql, st, st + PLANE,
                                      st + NPL * PLANE,
-                                     st + NPL * PLANE + PLANE, scale, mask,
-                                     state);
+                                     st + NPL * PLANE + PLANE, scale, cap,
+                                     mask, state);
     __syncthreads();
   }
 
@@ -194,7 +195,7 @@ __global__ void __launch_bounds__(NW * 32)
 template <int HD, typename T>
 int launch(const void* q, const void* k, const void* v, const int* kv_offset,
            void* out, int B, int Sq, int Sk, int H, int KV,
-           long long kv_bstride, int window, float scale,
+           long long kv_bstride, int window, float scale, float cap,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<HD, T>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -206,7 +207,7 @@ int launch(const void* q, const void* k, const void* v, const int* kv_offset,
   prefill_kernel<HD, T><<<grid, NW * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_offset, static_cast<T*>(out), Sq, Sk, H,
-      KV, kv_bstride, window, scale);
+      KV, kv_bstride, window, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -259,7 +260,7 @@ __global__ void __launch_bounds__(THREADS, HD <= 128 ? 2 : 1)
                   const bf16* __restrict__ q,
                   const int* __restrict__ kv_offset, bf16* __restrict__ out,
                   int Sq, int Sk, int H, int KV, int window,
-                  float scale_log2) {
+                  float scale_log2, float cap_log2) {
   using L = Layout<HD>;
   extern __shared__ __align__(128) unsigned char wg_smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
@@ -387,6 +388,8 @@ __global__ void __launch_bounds__(THREADS, HD <= 128 ? 2 : 1)
     for (int i = 0; i < BK / 2; ++i) {
       const int h = (i >> 1) & 1;
       float x = s[i] * scale_log2;
+      // soft cap in the log2 domain: cap_log2 = cap * log2(e)
+      if (cap_log2 > 0.f) x = cap_log2 * tanhf(x / cap_log2);
       if (!whole) {
         const int kpos = kb + 8 * (i >> 2) + 2 * c + (i & 1);
         if (!(kpos <= qpos[h] && kpos < Sk &&
@@ -505,7 +508,7 @@ int encode_kv(EncodeTiled enc, CUtensorMap* map, const void* base, int hd,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const int* kv_offset,
            void* out, int B, int Sq, int Sk, int H, int KV,
-           long long kv_bstride, int window, float scale,
+           long long kv_bstride, int window, float scale, float cap,
            cudaStream_t stream) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return -2;
@@ -523,7 +526,7 @@ int launch(const void* q, const void* k, const void* v, const int* kv_offset,
   kernel<<<grid, THREADS, Layout<HD>::SMEM, stream>>>(
       kmap, vmap, static_cast<const bf16*>(q), kv_offset,
       static_cast<bf16*>(out), Sq, Sk, H, KV, window,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, cap * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -534,7 +537,9 @@ int launch(const void* q, const void* k, const void* v, const int* kv_offset,
 // dtype: 0 float32, 1 bfloat16.  q/out: contiguous (B, Sq, H, hd);
 // k/v: (B, Sk, KV, hd) with the last three dims contiguous and batch
 // stride kv_bstride (elements; for bf16 a multiple of 8, and 16-byte
-// aligned k/v: the TMA's rule).  window <= 0: no window.  Returns a
+// aligned k/v: the TMA's rule).  window <= 0: no window.  soft_cap > 0:
+// scores become soft_cap * tanh(score / soft_cap) before the mask and
+// the softmax; 0: none.  Returns a
 // cudaError_t (0 on success); -1 for an unsupported dtype or head dim, -2
 // if libcuda's cuTensorMapEncodeTiled cannot be found, -3 if it refuses
 // the tensor map.
@@ -543,25 +548,26 @@ extern "C" int prefill_attention_launch(int dtype, int hd, const void* q,
                                         const int* kv_offset, void* out,
                                         int B, int Sq, int Sk, int H, int KV,
                                         long long kv_bstride, int window,
-                                        float scale, cudaStream_t stream) {
+                                        float scale, float soft_cap,
+                                        cudaStream_t stream) {
   if (B == 0 || Sq == 0) return 0;
   if (dtype == 1 && hd == 256)
     return wg::launch<256>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
-                           kv_bstride, window, scale, stream);
+                           kv_bstride, window, scale, soft_cap, stream);
   if (dtype == 0 && hd == 256)
     return launch<256, float>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
-                              kv_bstride, window, scale, stream);
+                              kv_bstride, window, scale, soft_cap, stream);
   if (dtype == 1 && hd == 128)
     return wg::launch<128>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
-                           kv_bstride, window, scale, stream);
+                           kv_bstride, window, scale, soft_cap, stream);
   if (dtype == 1 && hd == 64)
     return wg::launch<64>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
-                          kv_bstride, window, scale, stream);
+                          kv_bstride, window, scale, soft_cap, stream);
   if (dtype == 0 && hd == 128)
     return launch<128, float>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
-                              kv_bstride, window, scale, stream);
+                              kv_bstride, window, scale, soft_cap, stream);
   if (dtype == 0 && hd == 64)
     return launch<64, float>(q, k, v, kv_offset, out, B, Sq, Sk, H, KV,
-                             kv_bstride, window, scale, stream);
+                             kv_bstride, window, scale, soft_cap, stream);
   return -1;
 }

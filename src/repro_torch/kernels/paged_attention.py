@@ -75,9 +75,11 @@ def _check(q, k_pages, v_pages, block_tables, context_lens):
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, block_tables: torch.Tensor,
-                          context_lens: torch.Tensor) -> torch.Tensor:
+                          context_lens: torch.Tensor,
+                          soft_cap: float = 0.0) -> torch.Tensor:
     """The function as plain PyTorch ops: gather every page of the table,
-    masked f32 softmax over the first ``context_lens[b]`` keys."""
+    masked f32 softmax over the first ``context_lens[b]`` keys (scores
+    soft-capped to ``soft_cap * tanh(s / soft_cap)`` when > 0)."""
     B, H, hd = q.shape
     _, page, KV, _ = k_pages.shape
     G = H // KV
@@ -88,6 +90,8 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     v = v_pages[idx].reshape(B, S, KV, hd).float()
     qg = q.reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qg, k) / math.sqrt(hd)
+    if soft_cap:
+        s = torch.tanh(s / soft_cap) * soft_cap
     ctx = context_lens.long()
     mask = torch.arange(S, device=q.device)[None] < ctx[:, None]
     s = torch.where(mask[:, None, None], s, NEG_INF)
@@ -198,7 +202,7 @@ def _fn():
     fn = _build.load("paged_attention").paged_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [_P] * 8 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, _P])
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int, _P])
         fn.restype = ctypes.c_int
     return fn
 
@@ -242,14 +246,15 @@ def _scratch(q, stream, n_part, n_count):
     return part, count
 
 
-def _launch(q, k_pages, v_pages, block_tables, context_lens, splits=None):
+def _launch(q, k_pages, v_pages, block_tables, context_lens, splits=None,
+            soft_cap=0.0):
     """Launch the kernel on checked CUDA inputs; ``splits`` forces the
     split count (the card tests' way to reach every merge path)."""
     global LAUNCHES
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
             return _launch(q, k_pages, v_pages, block_tables, context_lens,
-                           splits)
+                           splits, soft_cap)
     B, H, hd = q.shape
     n_total, page, KV, _ = k_pages.shape
     if hd not in _KERNEL_HEAD_DIMS:
@@ -278,7 +283,7 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, splits=None):
                v_pages.data_ptr(), block_tables.data_ptr(),
                context_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
                count.data_ptr(), B, H, KV, page, block_tables.shape[1],
-               1.0 / math.sqrt(hd), splits, stream)
+               1.0 / math.sqrt(hd), soft_cap, splits, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {rc}")
@@ -288,9 +293,11 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, splits=None):
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
-                    context_lens: torch.Tensor) -> torch.Tensor:
+                    context_lens: torch.Tensor,
+                    soft_cap: float = 0.0) -> torch.Tensor:
     """q: (B, H, hd); k_pages/v_pages: (n_total_pages, page_size, KV, hd);
-    block_tables: (B, pages_per_seq) int32; context_lens: (B,) int32.
+    block_tables: (B, pages_per_seq) int32; context_lens: (B,) int32;
+    soft_cap: scores become ``soft_cap * tanh(s / soft_cap)`` when > 0.
     Returns (B, H, hd) in ``q.dtype``.
 
     CUDA tensors launch the kernel (head dims 64, 128 and 256; the block
@@ -300,8 +307,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check(q, k_pages, v_pages, block_tables, context_lens)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
-                                     context_lens)
+                                     context_lens, soft_cap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    return _launch(q, k_pages, v_pages, block_tables, context_lens)
+    return _launch(q, k_pages, v_pages, block_tables, context_lens,
+                   soft_cap=soft_cap)

@@ -59,14 +59,18 @@ def _check(q, k, v, kv_offset, window):
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_offset: torch.Tensor,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """The function as plain PyTorch ops: f32 scores and softmax over the
-    whole (Sq, Sk) square, masked on absolute positions."""
+                        window: Optional[int] = None,
+                        soft_cap: float = 0.0) -> torch.Tensor:
+    """The function as plain PyTorch ops: f32 scores (soft-capped to
+    ``soft_cap * tanh(s / soft_cap)`` when ``soft_cap`` > 0) and softmax
+    over the whole (Sq, Sk) square, masked on absolute positions."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    if soft_cap:
+        s = torch.tanh(s / soft_cap) * soft_cap
     qpos = (kv_offset.long()[:, None]
             + torch.arange(Sq, device=q.device)[None])            # (B, Sq)
     kpos = torch.arange(Sk, device=q.device)
@@ -87,16 +91,16 @@ def _fn():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [_P] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                          _P])
+                          ctypes.c_float, _P])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, kv_offset, window):
+def _launch(q, k, v, kv_offset, window, soft_cap=0.0):
     global LAUNCHES
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
-            return _launch(q, k, v, kv_offset, window)
+            return _launch(q, k, v, kv_offset, window, soft_cap)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if hd not in _KERNEL_HEAD_DIMS:
@@ -119,7 +123,7 @@ def _launch(q, k, v, kv_offset, window):
     rc = _fn()(_DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), kv_offset.data_ptr(), out.data_ptr(), B, Sq, Sk,
                H, KV, k.stride(0), window or 0, 1.0 / math.sqrt(hd),
-               torch._C._cuda_getCurrentRawStream(q.device.index))
+               soft_cap, torch._C._cuda_getCurrentRawStream(q.device.index))
     if rc != 0:
         why = {-2: "libcuda's cuTensorMapEncodeTiled was not found",
                -3: "libcuda refused the K/V tensor maps"}.get(
@@ -130,19 +134,21 @@ def _launch(q, k, v, kv_offset, window):
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  kv_offset: torch.Tensor,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  kv_offset: torch.Tensor, window: Optional[int] = None,
+                  soft_cap: float = 0.0) -> torch.Tensor:
     """q: (B, Sq, H, hd) new-token chunk; k/v: (B, Sk, KV, hd) cached
     prefix + chunk; kv_offset: (B,) int32 cached-prefix lengths; window:
-    sliding window or None.  Returns (B, Sq, H, hd) in ``q.dtype``.
+    sliding window or None; soft_cap: scores become ``soft_cap *
+    tanh(s / soft_cap)`` when > 0.  Returns (B, Sq, H, hd) in
+    ``q.dtype``.
 
     CUDA tensors launch the kernel (head dims 64, 128 and 256; k/v may be a
     batch-strided view such as a slice of a longer cache); CPU tensors
     run :func:`flash_prefill_plain`."""
     _check(q, k, v, kv_offset, window)
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, kv_offset, window)
+        return flash_prefill_plain(q, k, v, kv_offset, window, soft_cap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill runs on cuda or cpu, not "
                          f"{q.device}")
-    return _launch(q, k, v, kv_offset, window)
+    return _launch(q, k, v, kv_offset, window, soft_cap)

@@ -96,16 +96,19 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def _sdpa(q, k, v, mask):
+def _sdpa(q, k, v, mask, soft_cap=0.0):
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd), mask: (B,Sq,Sk) bool or None.
-    f32 scores and softmax; the weights are rounded to v's dtype before
-    the PV product, as in the reference."""
+    f32 scores (soft-capped when ``soft_cap`` > 0) and softmax; the
+    weights are rounded to v's dtype before the PV product, as in the
+    reference."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
                           k.float()) / math.sqrt(hd)
+    if soft_cap:
+        scores = torch.tanh(scores / soft_cap) * soft_cap
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
@@ -113,7 +116,8 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _blockwise_sdpa(q, k, v, positions, window=None, kv_chunk=KV_CHUNK):
+def _blockwise_sdpa(q, k, v, positions, window=None, soft_cap=0.0,
+                    kv_chunk=KV_CHUNK):
     """Causal (optionally windowed) online-softmax attention over KV
     chunks of ``kv_chunk``.
 
@@ -144,6 +148,8 @@ def _blockwise_sdpa(q, k, v, positions, window=None, kv_chunk=KV_CHUNK):
     for c in range(nchunk):
         kc, vc, pc = ks[:, c], vs[:, c], kpos[:, c]
         s = torch.einsum("bqkgh,bskh->bkgqs", qf, kc.float())
+        if soft_cap:
+            s = torch.tanh(s / soft_cap) * soft_cap
         pcb = pc[:, None, None, None, :]
         seen = qp >= pcb
         if window is not None:
@@ -175,13 +181,13 @@ def attn_prefill(p, x, positions, cfg: ModelConfig,
     q, k, v = _qkv(p, x, cfg, positions)
     window = cfg.window_size if kind == "swa" else None
     if S > BLOCKWISE_THRESHOLD:
-        y = _blockwise_sdpa(q, k, v, positions, window)
+        y = _blockwise_sdpa(q, k, v, positions, window, cfg.logit_soft_cap)
     else:
         i, j = positions[:, :, None], positions[:, None, :]
         mask = i >= j
         if window is not None:
             mask &= (i - j) < window
-        y = _sdpa(q, k, v, mask)
+        y = _sdpa(q, k, v, mask, cfg.logit_soft_cap)
     y = linear(p["wo"], y.reshape(B, S, -1))
     if window is None:
         return y, (k, v)
@@ -257,12 +263,13 @@ def attn_prefill_cached(p, x, positions, cfg: ModelConfig, kind: str,
         cache_v[bidx, slot] = v
         kv_len = plan["kv_len"]
         y = flash_prefill(q, cache_k[:, :kv_len], cache_v[:, :kv_len],
-                          plan["kv_offset"])
+                          plan["kv_offset"], soft_cap=cfg.logit_soft_cap)
     else:
         idx = plan["index"]
         ks = torch.cat([cache_k, k], dim=1)[bidx, idx]
         vs = torch.cat([cache_v, v], dim=1)[bidx, idx]
-        y = flash_prefill(q, ks, vs, plan["kv_offset"], cfg.window_size)
+        y = flash_prefill(q, ks, vs, plan["kv_offset"], cfg.window_size,
+                          cfg.logit_soft_cap)
         # the ring keeps the chunk's last S positions
         tail = slice(max(0, Sc - S), Sc)
         slot = (positions[:, tail] % S).long()
@@ -303,5 +310,5 @@ def attn_decode(p, x, pos: torch.Tensor, cfg: ModelConfig, kind: str,
     pages = (B * S // DECODE_PAGE, DECODE_PAGE, KV, hd)
     ctx = (torch.clamp_max(pos, S - 1) + 1).to(torch.int32)
     y = paged_attention(q[:, 0], cache_k.view(pages), cache_v.view(pages),
-                        block_tables, ctx)
+                        block_tables, ctx, cfg.logit_soft_cap)
     return linear(p["wo"], y.reshape(B, 1, H * hd))

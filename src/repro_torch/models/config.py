@@ -5,8 +5,8 @@ kinds, compiled into a *repeating unit* (``repeating_unit``) — the layout
 of the reference's stacked parameters, which ``models.convert`` unstacks.
 The dataclass keeps every field of the reference so a configuration is
 the same object in both packages; the port's ``Model`` serves the
-dense and recurrent patterns (``attn``, ``swa``, ``rglru``, ``mlstm``,
-``slstm``) and refuses the rest.
+decoder-only patterns (``attn``, ``swa``, ``rglru``, ``mlstm``,
+``slstm``; dense or MoE FFNs) and refuses ``xattn`` and the encoder.
 
 Block kinds: ``attn`` (full causal GQA attention + FFN), ``swa``
 (sliding-window attention over a ring-buffer cache + FFN), ``rglru``
@@ -97,6 +97,10 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def resolved_moe_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
     @property
     def is_encdec(self) -> bool:
@@ -191,8 +195,7 @@ class ModelConfig:
             n_kv_heads=n_kv,
             head_dim=64,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
-            moe_d_ff=(min(self.moe_d_ff or self.d_ff, 256) if self.n_experts
-                      else 0),
+            moe_d_ff=min(self.resolved_moe_d_ff, 256) if self.n_experts else 0,
             dense_residual_d_ff=min(self.dense_residual_d_ff, 256),
             vocab_size=min(self.vocab_size, 512),
             n_experts=min(self.n_experts, 4),
@@ -205,6 +208,14 @@ class ModelConfig:
             n_patches=min(self.n_patches, 16) if self.n_patches else 0,
             max_position=4096,
         )
+
+    def with_sliding_window(self, window: int = 4096) -> "ModelConfig":
+        """The sliding-window variant: every ``attn`` block becomes
+        ``swa`` with ``window``."""
+        pattern = tuple("swa" if k == "attn" else k for k in self.block_pattern)
+        return dataclasses.replace(
+            self, name=self.name + "-swa", block_pattern=pattern,
+            window_size=window)
 
 
 def dense_pattern(n: int) -> Tuple[str, ...]:

@@ -5,7 +5,9 @@ stacked for a scan over the config's repeating unit:
 ``params["units"][j]`` holds position ``j`` of the unit for all units
 along axis 0, and ``params["rest"]`` the remainder layers.  The port keeps
 one dict per layer (``layers[u * len(unit) + j]``, then the remainder).
-Every leaf is copied bit for bit.  A bfloat16 leaf arrives as an
+A MoE layer's leaves come along as they are: the experts' ``(E, D, F)``
+and ``(E, F, D)`` stacks and the float32 router.  PaliGemma's
+``vlm_proj`` is carried too.  Every leaf is copied bit for bit.  A bfloat16 leaf arrives as an
 ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses; it goes
 through its 16-bit pattern instead.
 """
@@ -56,7 +58,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any]
         "final_norm": _tree(tree["final_norm"], _tensor),
         "layers": layers,
     }
-    if "lm_head" in tree:
-        params["lm_head"] = _tree(tree["lm_head"], _tensor)
+    for name in ("lm_head", "vlm_proj"):
+        if name in tree:
+            params[name] = _tree(tree[name], _tensor)
     return params
 

@@ -1,7 +1,9 @@
-"""Block-pattern model — port of ``repro.models.model`` for the patterns
-the serving engine runs: ``attn`` and ``swa`` attention blocks with a
-dense FFN, RG-LRU blocks (RecurrentGemma), and mLSTM / sLSTM blocks
-(xLSTM).
+"""Block-pattern model — port of ``repro.models.model`` for the
+decoder-only patterns the serving engine runs: ``attn`` and ``swa``
+attention blocks with a dense or a top-k MoE FFN (``layers.moe_apply``;
+Arctic's dense residual beside it), RG-LRU blocks (RecurrentGemma), and
+mLSTM / sLSTM blocks (xLSTM); with PaliGemma's patch-embedding inputs
+and logit soft-capping.
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``lm_head``
 (absent when embeddings are tied) and ``layers``, a list of per-layer
@@ -28,9 +30,16 @@ Three entry points, as in the reference:
   ``paged_attention`` kernel (the engine's decode).
 
 The two cached entry points update the cache in place and return the
-same list.  Logits are f32, sliced to ``vocab_size``; the lm-head product
-runs in the parameter dtype.  Not ported: MoE, cross attention, the
-encoder, VLM inputs, logit soft-capping and ``forward_train``.
+same list.  Logits are f32, sliced to ``vocab_size``, soft-capped when
+``logit_soft_cap`` is set; the lm-head product runs in the parameter
+dtype.  A MoE layer computes its capacity per call and per batch row, as
+in the reference, so a chunked prefill drops other choices than the full
+forward unless ``capacity_factor >= n_experts / top_k`` (ROADMAP Queue
+C.12).  ``prefill`` takes the reference's ``batch``: with
+``batch["patch_embeds"]`` (B, n_patches, ``VISION_DIM``) the projected
+patches precede the tokens and positions restart at 0; the cached entry
+points take tokens only, as in the reference.  Not ported: cross
+attention, the encoder (Whisper) and ``forward_train``.
 
 ``Model(cfg, device="cuda")`` needs a card; ``device="cpu"`` runs the
 kernels' plain versions.
@@ -47,7 +56,11 @@ from . import attention as attn
 from . import recurrent as rec
 from .config import ModelConfig
 from .layers import (embed_apply, ffn_apply, init_embed, init_ffn,
-                     init_linear, init_norm, linear, norm_apply)
+                     init_linear, init_moe, init_norm, linear, moe_apply,
+                     norm_apply)
+
+#: stub SigLIP patch-embedding width (PaliGemma), as in the reference
+VISION_DIM = 1152
 
 #: block kinds the port serves
 SERVED_KINDS = ("attn", "swa", "rglru", "mlstm", "slstm")
@@ -60,12 +73,8 @@ def _unsupported(cfg: ModelConfig) -> str:
     kinds = sorted(set(cfg.block_pattern) - set(SERVED_KINDS))
     if kinds:
         return f"block kinds {kinds}"
-    if cfg.n_experts:
-        return "MoE"
-    if cfg.is_encdec or cfg.n_patches:
-        return "encoder / VLM inputs"
-    if cfg.logit_soft_cap:
-        return "logit soft-capping"
+    if cfg.is_encdec:
+        return "the encoder"
     return ""
 
 
@@ -93,6 +102,10 @@ class Model:
                                                 cfg.norm_type)}
         if kind in ATTN_KINDS:
             p["attn"] = attn.init_attention(gen, cfg, kind)
+            if cfg.n_experts:
+                p["norm2"] = init_norm(cfg.d_model, dt, dev, cfg.norm_type)
+                p["ffn"] = init_moe(gen, cfg, dt)
+                return p
             d_ff, act = cfg.d_ff, cfg.ffn_act
         elif kind == "rglru":
             p["rglru"] = rec.init_rglru(gen, cfg)
@@ -124,6 +137,9 @@ class Model:
                                             cfg.padded_vocab_size, dt)
         params["layers"] = [self._init_block(generator, kind)
                             for kind in cfg.block_pattern]
+        if cfg.n_patches:
+            params["vlm_proj"] = init_linear(generator, VISION_DIM,
+                                             cfg.d_model, dt)
         return params
 
     def init_cache(self, B: int, max_len: int) -> Cache:
@@ -157,8 +173,10 @@ class Model:
 
     def _ffn(self, p, x):
         cfg = self.cfg
-        return ffn_apply(p["ffn"], norm_apply(p["norm2"], x, cfg.norm_eps),
-                         _ffn_act(p["ffn"], cfg))
+        h = norm_apply(p["norm2"], x, cfg.norm_eps)
+        if "router" in p["ffn"]:
+            return moe_apply(p["ffn"], h, cfg)[0]
+        return ffn_apply(p["ffn"], h, _ffn_act(p["ffn"], cfg))
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -167,7 +185,11 @@ class Model:
             logits = x @ params["embed"]["w"].T
         else:
             logits = linear(params["lm_head"], x)
-        return logits.float()[..., :cfg.vocab_size]
+        logits = logits.float()[..., :cfg.vocab_size]
+        if cfg.logit_soft_cap:
+            logits = torch.tanh(logits / cfg.logit_soft_cap) \
+                * cfg.logit_soft_cap
+        return logits
 
     def _recurrent(self, p, kind, x, state, mode, plain=False):
         """One recurrent block (prefill or decode) -> (x, new state)."""
@@ -191,17 +213,27 @@ class Model:
             entry[name].copy_(t)
 
     # ---------------------------------------------------------- serving
-    def prefill(self, params, tokens: torch.Tensor, positions=None,
-                last_only: bool = False):
-        """Plain full forward.  tokens: (B, S).  Returns (logits, cache)
-        with attention caches sized to the prompt (``swa``: its ring) and
-        the recurrent states after the prompt; ``last_only`` computes the
-        lm-head logits of the last position only."""
+    def prefill(self, params, tokens: torch.Tensor, batch=None,
+                positions=None, last_only: bool = False):
+        """Plain full forward.  tokens: (B, S); ``batch``: optional
+        ``{"patch_embeds": (B, n_patches, VISION_DIM)}`` for a VLM, whose
+        projection precedes the tokens (logits and caches then cover
+        ``n_patches + S`` positions, numbered from 0).  Returns (logits,
+        cache) with attention caches sized to the input (``swa``: its
+        ring) and the recurrent states after it; ``last_only`` computes
+        the lm-head logits of the last position only."""
         cfg = self.cfg
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, device=self.device).expand(B, S)
         x = self._embed(params, tokens)
+        patches = (batch or {}).get("patch_embeds")
+        if cfg.n_patches and patches is not None:
+            pe = linear(params["vlm_proj"],
+                        torch.as_tensor(patches).to(self.device, x.dtype))
+            x = torch.cat([pe, x], dim=1)
+            positions = torch.arange(x.shape[1],
+                                     device=self.device).expand(B, -1)
         cache: Cache = []
         for p, kind in zip(params["layers"], cfg.block_pattern):
             if kind in ATTN_KINDS:

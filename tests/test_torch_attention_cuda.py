@@ -71,7 +71,9 @@ def _assert_close(got, want, dtype):
      (1, 77, 30, 16, 1, 256, 64),         # hd 256, window culls key tiles
      (1, 300, 1800, 16, 1, 256, 2048),    # RecurrentGemma-9B's ring
      (2, 50, 200, 14, 2, 64, 32),         # G = 7, window culls, ragged
-     (1, 130, 0, 8, 1, 128, 16)])         # window 16 < one key tile
+     (1, 130, 0, 8, 1, 128, 16),          # window 16 < one key tile
+     (1, 512, 1024, 32, 4, 128, None),    # Qwen3-30B-A3B widths, G = 8
+     (1, 512, 1024, 24, 8, 64, None)])    # Granite-MoE widths, G = 3
 def test_prefill_kernel_matches_plain(card, B, Sq, off, H, KV, hd, window,
                                       dtype):
     rng = np.random.RandomState(B * 1000 + Sq + off)
@@ -125,7 +127,9 @@ def test_prefill_kernel_on_a_cache_slice(card, H, KV, hd, window):
      (3, 28, 4, 64, 16, 9),                # G = 7
      (8, 28, 4, 128, 16, 256),             # Qwen2-7B widths, 4096 keys
      (8, 16, 1, 256, 16, 128),             # RecurrentGemma-9B's rings
-     (4, 32, 2, 64, 16, 40)])              # G = 16, two kv heads
+     (4, 32, 2, 64, 16, 40),               # G = 16, two kv heads
+     (8, 32, 4, 128, 16, 256),             # Qwen3-30B-A3B widths, G = 8
+     (8, 24, 8, 64, 16, 256)])             # Granite-MoE widths, G = 3
 def test_paged_kernel_matches_plain(card, B, H, KV, hd, page, npages, dtype):
     rng = np.random.RandomState(B * 100 + npages)
     ntotal = npages * B + 2
@@ -143,6 +147,39 @@ def test_paged_kernel_matches_plain(card, B, H, KV, hd, page, npages, dtype):
     assert pa.LAUNCHES == before + 1
     want = pa.paged_attention_plain(q, kp, vp, bt, ctx)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("H,KV,hd,window", [(32, 4, 128, None),
+                                            (24, 8, 64, 64),
+                                            (16, 1, 256, None)])
+def test_kernels_soft_cap_scores(card, H, KV, hd, window, dtype):
+    """With ``soft_cap`` both kernels take ``cap * tanh(s / cap)`` of each
+    scaled score before the softmax, as their plain versions do; the
+    smaller cap flattens the softmax visibly."""
+    rng = np.random.RandomState(hd + H)
+    q = _randn(rng, (1, 96, H, hd), dtype, card, Q_SCALE[dtype])
+    k = _randn(rng, (1, 160, KV, hd), dtype, card)
+    v = _randn(rng, (1, 160, KV, hd), dtype, card)
+    offs = torch.full((1,), 64, dtype=torch.int32, device=card)
+    for cap in (0.25, 30.0):
+        got = fp.flash_prefill(q, k, v, offs, window, cap)
+        want = fp.flash_prefill_plain(q, k, v, offs, window, cap)
+        torch.cuda.synchronize()
+        _assert_close(got, want, dtype)
+    bare = fp.flash_prefill_plain(q, k, v, offs, window)
+    assert (fp.flash_prefill_plain(q, k, v, offs, window, 0.25).float()
+            - bare.float()).abs().max() > 0.02
+    kp = k.reshape(10, 16, KV, hd)
+    vp = v.reshape(10, 16, KV, hd)
+    bt = torch.arange(10, dtype=torch.int32, device=card)[None].repeat(4, 1)
+    ctx = torch.tensor([160, 1, 77, 96], dtype=torch.int32, device=card)
+    for cap in (0.25, 30.0):
+        got = pa.paged_attention(q[0, :4], kp, vp, bt, ctx, cap)
+        want = pa.paged_attention_plain(q[0, :4], kp, vp, bt, ctx, cap)
+        torch.cuda.synchronize()
+        _assert_close(got, want, dtype)
 
 
 #: contexts of the split tests: empty, a single key, the edges of one

@@ -26,7 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
@@ -189,27 +189,41 @@ def test_blockwise_prefill_matches_jax():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("yi_6b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen2_7b-swa")
+    """Only the encoder-decoder is left: ``whisper_medium`` (and its
+    variants) and ``Model`` on an ``xattn`` block or an encoder raise;
+    MoE, VLM, soft-capped and sliding-window configs build and run."""
+    for name in ("whisper_medium", "whisper_medium-smoke",
+                 "whisper_medium-swa"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(name)
     with pytest.raises(KeyError):
         get_config("no_such_model")
     cfg = get_config("qwen2_7b-smoke")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(dataclasses.replace(cfg, block_pattern=("attn", "xattn")),
               device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Model(dataclasses.replace(cfg, n_experts=4, top_k=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder"):
+        Model(dataclasses.replace(cfg, enc_layers=2, enc_seq=8),
+              device="cpu")
+    toks = torch.tensor([[3, 1, 4, 1, 5]])
+    for built in (dataclasses.replace(cfg, n_experts=4, top_k=2),
+                  dataclasses.replace(cfg, logit_soft_cap=30.0),
+                  get_config("paligemma_3b-smoke"),
+                  get_config("qwen2_7b-swa-smoke"),
+                  get_config("granite_moe_3b_a800m-smoke")):
+        m = Model(built, device="cpu")
+        logits, _ = m.prefill(m.init(torch.Generator().manual_seed(0)), toks)
+        assert tuple(logits.shape) == (1, 5, built.vocab_size)
+    assert get_config("qwen2_7b-swa").block_pattern == ("swa",) * 28
 
 
 def test_port_config_equals_reference():
-    """The port's configs are field for field the reference's."""
-    for name in ("qwen2_7b", "qwen3_4b", "qwen2_7b-smoke", "qwen3_4b-smoke",
-                 "recurrentgemma_9b", "recurrentgemma_9b-smoke",
-                 "xlstm_350m", "xlstm_350m-smoke"):
+    """The port's configs are field for field the reference's: every id
+    the port serves, with its smoke and sliding-window forms."""
+    for name in (a + s for a in ARCH_IDS
+                 for s in ("", "-smoke", "-swa", "-swa-smoke")):
         assert dataclasses.asdict(get_config(name)) == \
-            dataclasses.asdict(j_get_config(name))
+            dataclasses.asdict(j_get_config(name)), name
 
 
 def test_init_draws_the_reference_distributions():
