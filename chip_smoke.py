@@ -178,15 +178,51 @@ Phases (each raises on failure, so any failure exits nonzero):
    floor is within the tolerances, else float32 on a depth cut); prints
    the memory (weights, caches, peak, and the reckoning from
    ``param_count``), TTFT / TPOT, prefill tokens/s, chunk and decode
-   medians and the decode-step floor (all weights read per step).
+   medians and the decode-step floor (all weights read per step);
+17. attention at Whisper's shapes vs plain — hd 64 with one query head
+   per KV head (G = 1): ``flash_prefill`` unmasked at (B 4, 1500, 16, 64)
+   (``kv_offset = Sk = Sq``), cross chunks of 1, 37 and 448 queries over
+   the first 1500 rows of a (4, 1504) cross cache, ``paged_attention``
+   over the cross cache's paged view (94 pages, context 1500, padding
+   rows never read) and self decode over ragged contexts, f32 and bf16
+   within ``ATTN_TOL``; then the encoder's attention, a 32-token cross
+   chunk and a cross decode step timed as in phase 7 (``time_whisper``);
+18. Whisper-medium — 24 + 24 layers at full width (d 1024, vocab 51865;
+   random bf16 weights), 8 clips of random (1500, 1024) frames, each:
+   ``Model.encode`` (24 ``flash_prefill`` launches), a 64-token prompt in
+   two ``prefill_cached`` chunks (the first computes the cross caches from
+   the encoder's output, the second reads them; 48 launches each) and 32
+   greedy ``decode_step``s (48 ``paged_attention`` launches each), each
+   stage's launches counted from zero; clip 0's chunk logits and first 2
+   decode steps held to the plain full forward in bf16 (``LOGIT_ATOL``,
+   ``LOGIT_REL_RMS``) if the model's own bf16 noise floor is within them,
+   else in f32 at full depth (``LOGIT_F32``); prints the encoder, chunk
+   and decode medians and the peak memory.  The serving engine refuses an
+   encoder-decoder, as the reference's does, so Whisper is driven at
+   model level;
+19. training — Qwen3-4B (36 layers, d 2560, vocab 151936, tied; the
+   reference launcher's documented arch) at full width and depth: bf16
+   parameters, f32 moments, ``remat=True``, batch 4 x 512 tokens of the
+   synthetic ``DataIterator`` cycling over 8 documents
+   (``TRAIN_DOCS_PER_ROW``), 20 steps of ``make_train_step``: every loss
+   finite, the mean of the last 5 below that of the first 5; a checkpoint
+   saved after step 10 (``save_checkpoint``, the reference's npz + JSON
+   format, ~48 GB, under ``build/``, removed after) and restored into
+   fresh tensors reproduces step 11's loss and parameters exactly; every
+   kernel's launch counter stays 0 throughout; then a 2-layer depth cut
+   at full width in f32 (``train_cut_check``): one step on the card
+   against the same step on the CPU, and one ``accum_steps=2`` step
+   against the unsplit one; prints the memory reckoning, losses, step
+   wall, tokens/s and peak memory.
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed),
 then phase 14's requests, then the requests of each of phase 13's
 comparison runs (never below 500), then phase 15's closed-loop sessions
-(halved), then Granite-MoE's requests (to 8); the recurrent and MoE
-paths keep their width and depth, no run is dropped, and no path keeps
-fewer instances.  Shard
+(halved), then Granite-MoE's requests (to 8), then Whisper's clips (to
+4), then the training steps (to 10, the checkpoint after 5); the
+recurrent, MoE, Whisper and training paths keep their width and depth,
+no run is dropped, and no path keeps fewer instances.  Shard
 workers are spawned processes that re-import this file as their main
 module, which is why it imports ``torch`` only inside ``main()``.
 
@@ -204,6 +240,7 @@ import copy
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -899,18 +936,19 @@ def logits_vs_plain(torch, engines, model, params, arrivals,
     return out
 
 
-def embedding_sensitivity(torch, model, params, prompt):
+def embedding_sensitivity(torch, model, params, prompt, batch=None):
     """How far the plain forward's last logits move when one ulp of the
     parameter dtype is added to 1% of the embedding entries (seeded):
-    (max |diff|, RMS ratio), the model's own rounding noise floor."""
+    (max |diff|, RMS ratio), the model's own rounding noise floor
+    (``batch``: the forward's inputs beside the tokens, e.g. frames)."""
     w = params["embed"]["w"]
     gen = torch.Generator(device=w.device).manual_seed(SEED + 6)
     hit = torch.rand(w.shape, generator=gen, device=w.device) < 0.01
     ulp = 2.0 ** -7 if w.dtype == torch.bfloat16 else 2.0 ** -23
     w2 = torch.where(hit, (w.float() * (1 + ulp)).to(w.dtype), w)
-    toks = torch.from_numpy(np.asarray(prompt, np.int64)[None])
-    base, _ = model.prefill(params, toks, last_only=True)
-    moved, _ = model.prefill(dict(params, embed={"w": w2}), toks,
+    toks = torch.as_tensor(np.asarray(prompt, np.int64)).reshape(1, -1)
+    base, _ = model.prefill(params, toks, batch, last_only=True)
+    moved, _ = model.prefill(dict(params, embed={"w": w2}), toks, batch,
                              last_only=True)
     base, moved = base[0, -1], moved[0, -1]
     d = moved - base
@@ -3468,6 +3506,656 @@ def rehearse_control(cl_cut=1.0):
     return ph
 
 
+# ---------------------------------------------------------------------------
+# Whisper-medium (phases 17-18): the encoder and cross-attention on both
+# attention kernels
+# ---------------------------------------------------------------------------
+#: Whisper-medium's attention widths (src/repro_torch/configs/
+#: whisper_medium.py): 16 query heads over 16 KV heads (G = 1), hd 64,
+#: 1500 encoder frames; the cross cache holds them in 1504 rows (whole
+#: decode pages, ``attention.cross_rows``)
+W_H, W_HD, W_FRAMES, W_ROWS = 16, 64, 1500, 1504
+#: phase 18: clips, the decoder prompt (two chunks: the first computes the
+#: cross caches from the encoder's output, the second reads them) and the
+#: greedy decode steps per clip; past WHISPER_CUT_AFTER_S it runs
+#: WHISPER_CUT_CLIPS clips (never fewer layers or a narrower model)
+W_CLIPS, W_PROMPT, W_CHUNKS, W_DECODE = 8, 64, (32, 32), 32
+WHISPER_CUT_AFTER_S, WHISPER_CUT_CLIPS = 900.0, 4
+#: phase 18's logit check: the cached path's chunk logits and its first
+#: W_CHECK_STEPS decode steps against the plain full forward
+W_CHECK_STEPS = 2
+
+
+def whisper_bound(Sq, Sk, B=1, H=W_H, KV=W_H, hd=W_HD, decode=False):
+    """(bytes, operations) of unmasked attention of ``Sq`` query rows over
+    ``Sk`` keys per sequence in bf16: q, k, v, out read or written once,
+    4*hd operations per (query row, head, key); a decode step also reads
+    its block table (4 B per 16-key page) and context length."""
+    nbytes = 2 * B * (2 * Sq * H * hd + 2 * Sk * KV * hd)
+    if decode:
+        nbytes += 4 * B * (-(-Sk // KV_BLOCK) + 1)
+    return nbytes, 4 * hd * H * Sq * Sk * B
+
+
+def check_whisper_attention(torch):
+    """Phase 17: both attention kernels at Whisper's shapes against their
+    plain versions, in float32 and bfloat16 within ``ATTN_TOL``: the
+    encoder's unmasked attention at (B 4, 1500, 16, 64) (``kv_offset =
+    Sk = Sq``: queries past the keys), cross chunks of 1, 37 and 448
+    queries over the first 1500 rows of a (4, 1504) cross cache (a
+    batch-strided slice), ``paged_attention`` over the cross cache's paged
+    view (94 pages a sequence, ``context_lens`` 1500; the 4 padding rows
+    hold 1e3, which must not be read) and self-attention decode over
+    ragged contexts."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as fp
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 17)
+
+    def rand(shape, dtype, scale=0.5):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(dev, dtype)
+
+    B, S, H, hd, X = 4, W_FRAMES, W_H, W_HD, W_ROWS
+    worst = {"prefill_attention": 0.0, "paged_attention": 0.0}
+    report = []
+    offs = torch.full((B,), S, dtype=torch.int32, device=dev)
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        qs = ATTN_Q_SCALE[name]
+        q, k, v = rand((B, S, H, hd), dtype, qs), rand((B, S, H, hd), dtype), \
+            rand((B, S, H, hd), dtype)
+        got = fp.flash_prefill(q, k, v, offs)
+        want = fp.flash_prefill_plain(q, k, v, offs)
+        torch.cuda.synchronize()
+        worst["prefill_attention"] = max(worst["prefill_attention"], _attn_err(
+            got, want, name, f"whisper encoder {name} B={B} Sq=Sk={S} "
+            f"{H}/{H} hd {hd} kv_offset {S} (unmasked)", report))
+        del q, k, v, got, want
+        xk, xv = rand((B, X, H, hd), dtype), rand((B, X, H, hd), dtype)
+        xk[:, S:], xv[:, S:] = 1e3, 1e3
+        for Sq in (1, 37, 448):
+            qc = rand((B, Sq, H, hd), dtype, qs)
+            got = fp.flash_prefill(qc, xk[:, :S], xv[:, :S], offs)
+            want = fp.flash_prefill_plain(qc, xk[:, :S], xv[:, :S], offs)
+            torch.cuda.synchronize()
+            worst["prefill_attention"] = max(
+                worst["prefill_attention"], _attn_err(
+                    got, want, name, f"whisper cross chunk {name} B={B} "
+                    f"Sq={Sq} over {S} of {X} cache rows", report))
+        pages = (B * X // KV_BLOCK, KV_BLOCK, H, hd)
+        bt = torch.arange(B * X // KV_BLOCK, dtype=torch.int32,
+                          device=dev).reshape(B, -1)
+        qd = rand((B, H, hd), dtype, qs)
+        got = pa.paged_attention(qd, xk.view(pages), xv.view(pages), bt,
+                                 offs)
+        want = pa.paged_attention_plain(qd, xk.view(pages), xv.view(pages),
+                                        bt, offs)
+        torch.cuda.synchronize()
+        splits, grid = pa.launch_config(qd, xk.view(pages), bt)
+        worst["paged_attention"] = max(worst["paged_attention"], _attn_err(
+            got, want, name, f"whisper cross decode {name} B={B} {H}/{H} "
+            f"hd {hd}, {X // KV_BLOCK} pages of {KV_BLOCK}, contexts {S} "
+            f"(splits {splits}, grid {grid})", report))
+        del xk, xv
+        # self-attention decode over a (B, 128) slot cache, ragged contexts
+        ctx = torch.tensor([1, 17, 64, 97], dtype=torch.int32, device=dev)
+        kp = rand((B * 128 // KV_BLOCK, KV_BLOCK, H, hd), dtype)
+        vp = rand((B * 128 // KV_BLOCK, KV_BLOCK, H, hd), dtype)
+        bt = torch.arange(B * 128 // KV_BLOCK, dtype=torch.int32,
+                          device=dev).reshape(B, -1)
+        got = pa.paged_attention(qd, kp, vp, bt, ctx)
+        want = pa.paged_attention_plain(qd, kp, vp, bt, ctx)
+        torch.cuda.synchronize()
+        worst["paged_attention"] = max(worst["paged_attention"], _attn_err(
+            got, want, name, f"whisper self decode {name} B={B} contexts "
+            f"{ctx.tolist()}", report))
+    return worst, report
+
+
+def time_whisper(torch):
+    """Phase 17's timings at phase 18's shapes (one clip, bf16): the
+    encoder's attention (1500 x 1500 unmasked), a 32-token cross chunk
+    over 1500 keys, and a cross decode step over the 1504-row cache (cold
+    over copies that hold ``COLD_BYTES``, and warm); each kernel's device
+    time per launch (profiler) beside its wrapper's CUDA-event time, the
+    plain version's time, SDPA's (unmasked, the same ways) and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as fp
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 18)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * 0.5).to(dev, torch.bfloat16)
+
+    out = {}
+    S, H, hd, X = W_FRAMES, W_H, W_HD, W_ROWS
+    offs = torch.full((1,), S, dtype=torch.int32, device=dev)
+    for what, Sq in (("encoder", S), ("cross chunk", W_CHUNKS[1])):
+        q = rand(1, Sq, H, hd)
+        k, v = rand(1, X, H, hd), rand(1, X, H, hd)
+        run = (lambda: fp.flash_prefill(q, k[:, :S], v[:, :S], offs))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :S], v[:, :S]))
+        lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        nbytes, ops = whisper_bound(Sq, S)
+        bound, by = _bound(nbytes, ops)
+        dev_ms = _device_ms(torch, [run], 20)
+        out[f"whisper {what}"] = dict(
+            shape=f"Sq={Sq} over {S} keys (unmasked), H={H} KV={H} hd={hd}",
+            ms=dev_ms, wrapper_ms=_events_ms(torch, run, 50),
+            plain_ms=_events_ms(torch, lambda: fp.flash_prefill_plain(
+                q, k[:, :S], v[:, :S], offs), 5),
+            library_ms=_device_ms(torch, [lib], 10),
+            library_wall_ms=_events_ms(torch, lib, 20), bound_ms=bound,
+            bound_by=by, bytes=nbytes, ops=ops, share=bound / dev_ms)
+    nbytes, ops = whisper_bound(1, S, decode=True)
+    copies = _copies(nbytes)
+    pages = (X // KV_BLOCK, KV_BLOCK, H, hd)
+    caches = [(rand(1, X, H, hd), rand(1, X, H, hd)) for _ in range(copies)]
+    bt = torch.arange(X // KV_BLOCK, dtype=torch.int32, device=dev)[None]
+    q = rand(1, H, hd)
+    runs = [(lambda k=k, v=v: pa.paged_attention(q, k.view(pages),
+                                                 v.view(pages), bt, offs))
+            for k, v in caches]
+    splits, grid = pa.launch_config(q, caches[0][0].view(pages), bt)
+    libs = [(lambda k=k, v=v: F.scaled_dot_product_attention(
+        q[:, :, None], k[:, :S].transpose(1, 2), v[:, :S].transpose(1, 2)))
+        for k, v in caches]
+    bound, by = _bound(nbytes, ops)
+    cold = _device_ms(torch, runs, 10)
+    out["whisper cross decode"] = dict(
+        shape=f"B=1, {X // KV_BLOCK} pages of {KV_BLOCK}, context {S}, "
+              f"H={H} KV={H} hd={hd}",
+        ms=cold, warm_ms=_device_ms(torch, runs[:1], 20),
+        wrapper_ms=_events_ms(torch, runs[0], 200), copies=copies,
+        splits=splits, grid=grid,
+        plain_ms=_events_ms(torch, lambda: pa.paged_attention_plain(
+            q, caches[0][0].view(pages), caches[0][1].view(pages), bt,
+            offs), 5),
+        library_ms=_device_ms(torch, libs, 10),
+        library_warm_ms=_device_ms(torch, libs[:1], 20),
+        library_wall_ms=_events_ms(torch, libs[0], 50), bound_ms=bound,
+        bound_by=by, bytes=nbytes, ops=ops, share=bound / cold)
+    return out
+
+
+def whisper_clip(torch, model, params, frames, toks, timed=None):
+    """One clip through the served path: ``encode`` (the encoder on
+    ``flash_prefill``), ``prefill_cached`` of the prompt in the chunks of
+    ``W_CHUNKS`` (the first with ``enc_out``), then ``W_DECODE`` greedy
+    ``decode_step``s.  Each stage's launches are counted from zero and
+    held to 24 / 48 per chunk / 48 per step; ``timed`` collects the
+    stages' walls (synchronised).  Returns (chunk logits, decode logits,
+    decoded tokens)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as fp
+    cfg = model.cfg
+    n_x = sum(k == "xattn" for k in cfg.block_pattern)
+    dev = model.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    on_card = dev.type == "cuda"
+
+    def stage(name, fn, want):
+        fp.LAUNCHES = pa.LAUNCHES = 0
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        if timed is not None:
+            timed.setdefault(name, []).append(time.perf_counter() - t0)
+        got = (fp.LAUNCHES, pa.LAUNCHES)
+        if got != (want if on_card else (0, 0)):
+            raise AssertionError(f"whisper {name}: launches (flash_prefill, "
+                                 f"paged_attention) {got} != {want}")
+        return out
+
+    enc_out = stage("encoder", lambda: model.encode(params, frames),
+                    (cfg.enc_layers, 0))
+    cache = model.init_cache(1, -(-(W_PROMPT + W_DECODE) // KV_BLOCK)
+                             * KV_BLOCK)
+    chunk_logits, lo = [], 0
+    for i, n in enumerate(W_CHUNKS):
+        pos = torch.arange(lo, lo + n, device=dev)[None]
+        logits, cache = stage(
+            "chunk", lambda: model.prefill_cached(
+                params, toks[:, lo:lo + n], pos, cache, [lo],
+                enc_out=enc_out if i == 0 else None), (2 * n_x, 0))
+        chunk_logits.append(logits)
+        lo += n
+    tok = chunk_logits[-1][:, -1].argmax(-1)[:, None]
+    dec_logits, out_toks = [], []
+    for j in range(W_DECODE):
+        pos = torch.full((1,), W_PROMPT + j, device=dev)
+        logits, cache = stage("decode", lambda: model.decode_step(
+            params, tok, pos, cache), (0, 2 * n_x))
+        out_toks.append(int(tok))
+        dec_logits.append(logits[:, 0])
+        tok = logits[:, 0].argmax(-1)[:, None]
+    return torch.cat(chunk_logits, dim=1), dec_logits, out_toks
+
+
+def _logit_diff(got, want):
+    d = (got - want).abs()
+    return (float(d.max()), float((got - want).square().mean().sqrt()
+                                  / want.square().mean().sqrt()))
+
+
+def whisper_logit_check(torch, model, params, frames, toks, chunk_logits,
+                        dec_logits, out_toks, tol):
+    """The served clip's chunk logits and its first ``W_CHECK_STEPS``
+    decode steps against ``Model.prefill`` (the plain full forward: the
+    encoder's and decoder's plain attention) over the same frames and
+    tokens, each within ``tol`` = (max |diff|, RMS ratio)."""
+    atol, rel = tol
+    checks = []
+    plain, _ = model.prefill(params, toks, {"frames": frames})
+    checks.append(("prompt chunks",) + _logit_diff(chunk_logits[0],
+                                                   plain[0]))
+    seq = toks[0].tolist()
+    for j in range(W_CHECK_STEPS):
+        seq.append(out_toks[j])
+        p, _ = model.prefill(params, torch.tensor([seq], device=model.device),
+                             {"frames": frames}, last_only=True)
+        checks.append((f"decode step {j}",) + _logit_diff(dec_logits[j][0],
+                                                          p[0, -1]))
+    for what, mx, r in checks:
+        if not (mx <= atol and r <= rel):
+            raise AssertionError(f"whisper served logits != plain forward "
+                                 f"({what}): max |diff| {mx:.4f}, RMS ratio "
+                                 f"{r:.4f} (tolerance {tol})")
+    return checks
+
+
+def whisper_path(torch, device="cuda", n_clips=W_CLIPS, arch="whisper_medium"):
+    """Phase 18: Whisper-medium at full width and depth (24 + 24 layers, d
+    1024, vocab 51865; random bf16 weights from a seeded generator on the
+    card), ``n_clips`` clips of random frames (1500 x 1024), each through
+    ``whisper_clip`` (encoder, two prompt chunks, 32 decode steps) with
+    its launches held; clip 0's logits held to the plain full forward
+    (``whisper_logit_check``): in bf16 when the model's own bf16 noise
+    floor is within (``LOGIT_ATOL``, ``LOGIT_REL_RMS``), else in float32
+    at full depth (~3.2 GB, within ``MOE_F32_BYTES``: phase 16's rule),
+    which is printed.  ``arch="whisper_medium-smoke", device="cpu"``
+    rehearses it on the CPU (plain versions, no launches)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(arch)
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    sync()
+    t_init = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 19)
+    frames = torch.from_numpy(rng.randn(n_clips, cfg.enc_seq,
+                                        cfg.enc_d_model).astype(np.float32)
+                              ).to(device, model.dtype)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                        (n_clips, W_PROMPT))).to(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mem_weights = torch.cuda.memory_allocated() if on_card else 0
+    timed = {}
+    t0 = time.perf_counter()
+    served = [whisper_clip(torch, model, params, frames[i:i + 1],
+                           toks[i:i + 1], timed) for i in range(n_clips)]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    for chunk, dec, _ in served:
+        if not (bool(torch.isfinite(chunk).all())
+                and all(bool(torch.isfinite(d).all()) for d in dec)):
+            raise AssertionError("whisper served logits are not finite")
+    f0, t1 = frames[:1], toks[:1]
+    floor = embedding_sensitivity(torch, model, params, t1[0].tolist(),
+                                  {"frames": f0})
+    what = f"bf16 noise floor max {floor[0]:.4f}, RMS ratio {floor[1]:.4f}"
+    if floor[0] <= LOGIT_ATOL and floor[1] <= LOGIT_REL_RMS:
+        checks = whisper_logit_check(torch, model, params, f0, t1,
+                                     *served[0], (LOGIT_ATOL, LOGIT_REL_RMS))
+        what += (f" within ({LOGIT_ATOL}, {LOGIT_REL_RMS}): bf16 at full "
+                 f"depth")
+    else:
+        m32 = Model(dataclasses.replace(cfg, dtype="float32"), device=device)
+        p32 = _cast(params, torch.float32)
+        served32 = whisper_clip(torch, m32, p32, f0.float(), t1)
+        checks = whisper_logit_check(torch, m32, p32, f0.float(), t1,
+                                     *served32, LOGIT_F32)
+        what += (f" above ({LOGIT_ATOL}, {LOGIT_REL_RMS}): float32 at full "
+                 f"depth ({cfg.param_count() * 4 / 1e9:.1f} GB)")
+    launches = {"prefill_attention": n_clips * cfg.enc_layers
+                + n_clips * len(W_CHUNKS) * 2 * cfg.n_layers,
+                "paged_attention": n_clips * W_DECODE * 2 * cfg.n_layers}
+    return {"cfg": cfg, "n_params": sum(t.numel() for t in _leaves(params)),
+            "init_s": t_init, "wall_s": wall, "clips": n_clips,
+            "timed": timed, "peak": peak, "mem_weights": mem_weights,
+            "checks": checks, "check_note": what,
+            "launches": launches if on_card else dict.fromkeys(launches, 0),
+            "tokens": [s[2] for s in served]}
+
+
+def report_whisper(gpu, wp, timing):
+    """Print phases 17 and 18's numbers."""
+    cfg = wp["cfg"]
+    tag = f"[{gpu}] whisper {cfg.name}:"
+    med = (lambda v: float(np.median(v)) * 1e3)
+    t = wp["timed"]
+    print(f"{tag} {cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+          f"{wp['n_params'] / 1e9:.3f} B params (bf16, seeded on the card "
+          f"in {wp['init_s']:.1f} s); {wp['clips']} clips of "
+          f"{cfg.enc_seq} x {cfg.enc_d_model} frames, each: encoder, a "
+          f"{W_PROMPT}-token prompt in chunks {W_CHUNKS}, {W_DECODE} greedy "
+          f"decode steps; {wp['wall_s']:.1f} s wall")
+    print(f"{tag} medians: encoder {med(t['encoder']):.2f} ms, chunk "
+          f"{med(t['chunk']):.2f} ms, decode step {med(t['decode']):.2f} ms "
+          f"(B = 1); device memory: weights "
+          f"{wp['mem_weights'] / 2 ** 30:.2f} GiB, peak "
+          f"{wp['peak'] / 2 ** 30:.2f} GiB")
+    print(f"{tag} launches (flash_prefill, paged_attention): "
+          f"{cfg.enc_layers} per encoder, {2 * cfg.n_layers} per chunk, "
+          f"{2 * cfg.n_layers} per decode step, as expected; in all "
+          f"{wp['launches']}")
+    print(f"{tag} logit check: {wp['check_note']}")
+    for what, mx, rel in wp["checks"]:
+        print(f"{tag} served vs plain full forward, {what}: max |dlogit| "
+              f"{mx:.4f}, RMS ratio {rel:.4f}")
+    for name, tm in timing.items():
+        report_attention_timing(gpu, name, tm)
+
+
+# ---------------------------------------------------------------------------
+# training (phase 19): Qwen3-4B at full width and depth
+# ---------------------------------------------------------------------------
+#: phase 19: the reference launcher's documented arch, batch x sequence
+#: (the synthetic ``DataIterator``), steps, the checkpoint step, the
+#: optimizer; past TRAIN_CUT_AFTER_S it takes TRAIN_CUT_STEPS steps (the
+#: checkpoint at half of them), never a narrower or shallower model
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3_4b", 4, 512, 20
+TRAIN_CUT_AFTER_S, TRAIN_CUT_STEPS = 900.0, 10
+TRAIN_LR, TRAIN_WARMUP = 5e-4, 2
+#: the stream cycles over this many documents per batch row
+#: (``DataConfig.n_docs``: 8 at batch 4), so
+#: that each is seen every other step and 20 steps can show the loss
+#: fall: on fresh documents every step (the default, 2^20 of them; each
+#: spans its own 512-token id range) a random-init model has nothing to
+#: learn in 20 steps (a 2-layer width-1024 proxy on the CPU: first-5 mean
+#: 12.156, last-5 mean 12.160; with 8 documents 9.665 -> 0.444)
+TRAIN_DOCS_PER_ROW = 2
+#: the depth cut held between card and CPU (full width, float32) and its
+#: batch; tolerances: loss and gradient norm relative 1e-4 (cuBLAS and
+#: the CPU's BLAS sum in other orders, no TF32), parameters after the step
+#: within 1e-3 x lr + 1e-6 |p| where the clipped gradient is at least
+#: 1e3 x eps, within 2.01 x lr elsewhere (where rounding decides the Adam
+#: update's sign; tests/test_torch_training.py's ``_hold_step``)
+TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 2, 64
+TRAIN_REL = 1e-4
+
+
+def _kernel_launches():
+    from repro_torch.kernels import route_score
+    return {**{k: m.LAUNCHES for k, m in _launch_counters().items()},
+            "route_score": route_score.LAUNCHES}
+
+
+def _zero_launches():
+    from repro_torch.kernels import route_score
+    for m in list(_launch_counters().values()) + [route_score]:
+        m.LAUNCHES = 0
+
+
+def hold_step(torch, want, got, m_want, lr, b1=0.9):
+    """Parameters after one step on the scale of ``lr`` (the rule above):
+    returns (worst |diff| / lr where the clipped gradient is >= 1e3 x eps,
+    worst |diff| / lr elsewhere, elements elsewhere)."""
+    from repro_torch.training.optim import leaves
+    tight = wide = 0.0
+    n_wide = 0
+    for a, b, m in zip(leaves(want), leaves(got), leaves(m_want)):
+        a, b, m = a.float().cpu(), b.float().cpu(), m.float().cpu()
+        d = (a - b).abs()
+        ok = m.abs() / (1 - b1) >= 1e3 * 1e-8
+        excess = (d - 1e-6 * a.abs())[ok]
+        if excess.numel():
+            tight = max(tight, float(excess.max()) / lr)
+        if (~ok).any():
+            wide = max(wide, float(d[~ok].max()) / lr)
+            n_wide += int((~ok).sum())
+    if not (tight <= 1e-3 and wide <= 2.01):
+        raise AssertionError(f"parameters after the step differ: {tight:.3g} "
+                             f"lr (limit 1e-3), {wide:.3g} lr where the "
+                             f"gradient is ill-conditioned (limit 2.01)")
+    return tight, wide, n_wide
+
+
+def train_reckoning(cfg, B, S):
+    """Device bytes the step needs: bf16 parameters and gradients, f32
+    moments, and the largest activations (the f32 logits of B x S tokens,
+    three copies: logits, their softmax's gradient, the bf16 product)."""
+    n = cfg.param_count()
+    logits = B * S * cfg.padded_vocab_size * 4 * 3
+    return {"params": 2 * n, "grads": 2 * n, "moments": 8 * n,
+            "logits": logits, "total": 12 * n + logits, "n": n}
+
+
+def train_path(torch, ckpt_dir, n_steps=TRAIN_STEPS, device="cuda",
+               arch=TRAIN_ARCH, B=TRAIN_BATCH, S=TRAIN_SEQ, lr=TRAIN_LR):
+    """Phase 19: ``arch`` at full width and depth in bf16 (f32 moments,
+    ``remat=True``) trained ``n_steps`` steps of ``make_train_step`` on the
+    synthetic ``DataIterator``; every loss finite and the mean of the last
+    5 below that of the first 5; a checkpoint saved after step
+    ``n_steps // 2`` (``save_checkpoint``, the reference's format) and
+    restored into fresh tensors (everything else freed first) reproduces
+    the next step's loss and parameters exactly.  Every kernel's launch
+    counter stays 0 throughout (training runs no kernel).
+    ``arch="qwen3_4b-smoke", device="cpu"`` rehearses it (at a smoke
+    model's width the loss needs a larger ``lr`` to fall in 20 steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.models import Model
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.optim import (AdamWState, OptimizerConfig,
+                                            adamw_init, leaves, tree_map)
+    from repro_torch.training.train_loop import make_train_step
+    cfg = get_config(arch)
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    model = Model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    opt_cfg = OptimizerConfig(lr=lr, warmup_steps=TRAIN_WARMUP,
+                              total_steps=n_steps, schedule=cfg.lr_schedule)
+    opt = adamw_init(params, opt_cfg)
+    sync()
+    t_init = time.perf_counter() - t0
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                          global_batch=B, n_docs=TRAIN_DOCS_PER_ROW * B)
+    data = DataIterator(data_cfg)
+    step_fn = make_train_step(model, opt_cfg, remat=True, device=device)
+    mem_state = torch.cuda.memory_allocated() if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    save_at = n_steps // 2
+    losses, walls, gnorms = [], [], []
+    resume = None
+    for step in range(1, n_steps + 1):
+        batch = next(data)
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        loss = float(m["loss"])             # waits for the step
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(float(m["grad_norm"]))
+        if not np.isfinite(loss):
+            raise AssertionError(f"step {step}: loss {loss}")
+        if step == save_at:
+            t0 = time.perf_counter()
+            ck.save_checkpoint(ckpt_dir, step, params, opt,
+                               extra={"data": data.state()})
+            t_save = time.perf_counter() - t0
+        if step == save_at + 1:
+            resume = {"batch": batch, "loss": loss, "params": tree_map(
+                lambda t: t.to("cpu", copy=True), params)}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    launches = _kernel_launches()
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: first 5 mean {first}, "
+                             f"last 5 mean {last}")
+    # resume: free everything, restore into fresh tensors, take the step
+    def meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+    like, mlike = tree_map(meta, params), tree_map(meta, opt.m)
+    del params, opt, m
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step0, p2, o2 = ck.restore_checkpoint(
+        ckpt_dir, None, like, AdamWState(0, mlike, mlike), device=device)
+    t_restore = time.perf_counter() - t0
+    data2 = DataIterator(data_cfg)
+    with open(os.path.join(ckpt_dir, f"step_{step0:08d}.json")) as f:
+        data2.restore(json.load(f)["extra"]["data"])
+    batch = next(data2)
+    same_batch = all(np.array_equal(batch[k], resume["batch"][k])
+                     for k in batch)
+    p2, o2, m2 = step_fn(p2, o2, batch)
+    loss2 = float(m2["loss"])
+    exact = all(torch.equal(a.cpu(), b) for a, b in
+                zip(leaves(p2), leaves(resume["params"])))
+    if not (step0 == save_at and o2.step == save_at + 1 and same_batch
+            and loss2 == resume["loss"] and exact):
+        raise AssertionError(f"resume from step {step0}: batch equal "
+                             f"{same_batch}, loss {loss2} vs "
+                             f"{resume['loss']}, parameters equal {exact}")
+    launches2 = _kernel_launches()
+    if any(launches.values()) or any(launches2.values()):
+        raise AssertionError(f"training launched kernels: {launches}, "
+                             f"{launches2}")
+    ck_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                   for f in os.listdir(ckpt_dir))
+    del p2, o2, m2, resume
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"cfg": cfg, "B": B, "S": S, "lr": lr, "steps": n_steps,
+            "losses": losses,
+            "gnorms": gnorms, "walls": walls, "init_s": t_init,
+            "mem_state": mem_state, "peak": peak, "launches": launches,
+            "save_at": save_at, "save_s": t_save, "restore_s": t_restore,
+            "ckpt_bytes": ck_bytes, "resumed_loss": loss2,
+            "reckoning": train_reckoning(cfg, B, S)}
+
+
+def train_cut_check(torch, device="cuda", arch=TRAIN_ARCH):
+    """Phase 19's depth cut: ``arch`` at full width on its first
+    ``TRAIN_CUT_LAYERS`` layers in float32; one ``make_train_step`` step
+    on the card against the same step on the CPU (the same parameters and
+    batch), and one ``accum_steps=2`` step against the unsplit one on the
+    card: loss and gradient norm within ``TRAIN_REL``, parameters by
+    ``hold_step``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.models import Model
+    from repro_torch.training.optim import (OptimizerConfig, adamw_init,
+                                            tree_map)
+    from repro_torch.training.train_loop import make_train_step
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, dtype="float32",
+                              n_layers=TRAIN_CUT_LAYERS,
+                              block_pattern=base.block_pattern[
+                                  :TRAIN_CUT_LAYERS])
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    batch = next(DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=TRAIN_CUT_SEQ,
+                                         global_batch=TRAIN_CUT_BATCH)))
+    model = Model(cfg, device=device)
+    p0 = model.init(torch.Generator(device=device).manual_seed(SEED + 1))
+    host = tree_map(lambda t: t.cpu(), p0)
+    out = {}
+    runs = {}
+    for name, dev, accum in (("card", device, 1), ("card accum 2", device, 2),
+                             ("cpu", "cpu", 1)):
+        m = model if dev == device else Model(cfg, device="cpu")
+        p = tree_map(lambda t: t.to(dev).clone(), host)
+        o = adamw_init(p, opt_cfg)
+        t0 = time.perf_counter()
+        p, o, met = make_train_step(m, opt_cfg, accum_steps=accum,
+                                    device=dev)(p, o, batch)
+        runs[name] = (tree_map(lambda t: t.cpu(), p),
+                      tree_map(lambda t: t.cpu(), o.m),
+                      float(met["loss"]), float(met["grad_norm"]),
+                      met["lr"], time.perf_counter() - t0)
+        del p, o
+    for a, b in (("cpu", "card"), ("card", "card accum 2")):
+        pa_, ma, la, ga, lr, _ = runs[a]
+        pb, _, lb, gb, _, _ = runs[b]
+        if not (abs(la - lb) <= TRAIN_REL * abs(la)
+                and abs(ga - gb) <= TRAIN_REL * ga):
+            raise AssertionError(f"{b} vs {a}: loss {lb} vs {la}, gradient "
+                                 f"norm {gb} vs {ga}")
+        out[f"{b} vs {a}"] = (la, lb, ga, gb) + hold_step(torch, pa_, pb,
+                                                          ma, lr)
+    out["walls"] = {k: v[5] for k, v in runs.items()}
+    out["cfg"] = cfg
+    return out
+
+
+def report_train(gpu, tp, cut):
+    """Print phase 19's numbers."""
+    cfg, r = tp["cfg"], tp["reckoning"]
+    tag = f"[{gpu}] training {cfg.name}:"
+    tokens = tp["B"] * tp["S"]
+    med = float(np.median(tp["walls"][1:]))
+    print(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size} (tied), bf16 parameters, f32 moments, remat "
+          f"per layer; batch {tp['B']} x {tp['S']} tokens of the synthetic "
+          f"DataIterator cycling over {TRAIN_DOCS_PER_ROW * tp['B']} "
+          f"documents; {tp['steps']} steps of make_train_step, lr "
+          f"{tp['lr']} ({cfg.lr_schedule}, warmup {TRAIN_WARMUP})")
+    print(f"{tag} memory reckoning: {r['n'] / 1e9:.3f} B parameters -> "
+          f"params {r['params'] / 1e9:.2f} GB + grads {r['grads'] / 1e9:.2f}"
+          f" + moments {r['moments'] / 1e9:.2f} = "
+          f"{(r['params'] + r['grads'] + r['moments']) / 1e9:.2f} GB, plus "
+          f"~{r['logits'] / 1e9:.2f} GB of f32 logits: "
+          f"{r['total'] / 1e9:.2f} GB of the card's 80; measured: state "
+          f"{tp['mem_state'] / 2 ** 30:.2f} GiB, peak "
+          f"{tp['peak'] / 2 ** 30:.2f} GiB")
+    print(f"{tag} losses {[round(x, 4) for x in tp['losses']]}; first 5 "
+          f"mean {np.mean(tp['losses'][:5]):.4f} > last 5 mean "
+          f"{np.mean(tp['losses'][-5:]):.4f}; gradient norms "
+          f"{[round(x, 3) for x in tp['gnorms']]}")
+    print(f"{tag} step wall median {med * 1e3:.1f} ms (first step "
+          f"{tp['walls'][0] * 1e3:.1f}), {tokens / med:.0f} tokens/s; "
+          f"kernel launches {tp['launches']} (training runs no kernel)")
+    print(f"{tag} checkpoint after step {tp['save_at']}: "
+          f"{tp['ckpt_bytes'] / 1e9:.2f} GB on disk, saved in "
+          f"{tp['save_s']:.1f} s, restored into fresh tensors in "
+          f"{tp['restore_s']:.1f} s; step {tp['save_at'] + 1} from it: loss "
+          f"{tp['resumed_loss']} and every parameter equal to the "
+          f"uninterrupted run's")
+    for what, v in cut.items():
+        if what in ("walls", "cfg"):
+            continue
+        la, lb, ga, gb, tight, wide, n_wide = v
+        print(f"{tag} depth cut ({cut['cfg'].n_layers} layers, full width, "
+              f"f32, batch {TRAIN_CUT_BATCH} x {TRAIN_CUT_SEQ}) {what}: loss "
+              f"{lb:.7f} vs {la:.7f}, gradient norm {gb:.6f} vs {ga:.6f} "
+              f"(rel {TRAIN_REL}); parameters within {tight:.3g} lr "
+              f"(limit 1e-3) where the clipped gradient >= 1e3 eps, "
+              f"{wide:.3g} lr over {n_wide} elements below it (limit 2.01)")
+    print(f"{tag} depth-cut step walls {cut['walls']} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3683,6 +4371,48 @@ def main() -> int:
         report_serving(gpu, sv)
         print(f"[{gpu}] MoE serving {arch}: {time.perf_counter() - t0:.1f} s")
         served[arch] = sv
+
+    # ---- phase 17: both attention kernels at Whisper's shapes ---------
+    t0 = time.perf_counter()
+    w_err, report = check_whisper_attention(torch)
+    for line in report:
+        print(f"[{gpu}] kernel vs plain: {line}")
+    print(f"[{gpu}] attention kernels at Whisper's shapes vs plain "
+          f"(tolerance {ATTN_TOL}): ok, {time.perf_counter() - t0:.1f} s")
+    for name, err in w_err.items():
+        attn_err[name] = max(attn_err[name], err)
+    w_time = time_whisper(torch)
+
+    # ---- phase 18: Whisper-medium at full width and depth -------------
+    clips = W_CLIPS
+    if time.perf_counter() - t_start > WHISPER_CUT_AFTER_S:
+        clips = WHISPER_CUT_CLIPS
+        print(f"whisper: cut from {W_CLIPS} to {clips} clips to stay within "
+              f"the time limit (width and depth unchanged)")
+    t0 = time.perf_counter()
+    wp = whisper_path(torch, n_clips=clips)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report_whisper(gpu, wp, w_time)
+    print(f"[{gpu}] whisper: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 19: training Qwen3-4B at full width and depth ----------
+    steps = TRAIN_STEPS
+    if time.perf_counter() - t_start > TRAIN_CUT_AFTER_S:
+        steps = TRAIN_CUT_STEPS
+        print(f"training: cut from {TRAIN_STEPS} to {steps} steps to stay "
+              f"within the time limit (width and depth unchanged)")
+    t0 = time.perf_counter()
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    try:
+        tp = train_path(torch, ckpt_dir, n_steps=steps)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = train_cut_check(torch)
+    report_train(gpu, tp, cut)
+    print(f"[{gpu}] training: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
@@ -3709,7 +4439,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": sum(sv["launches"][name] for sv in served.values()),
+            "launches": sum(sv["launches"][name] for sv in served.values())
+            + wp["launches"].get(name, 0),
             "max_abs_err": {**attn_err, **rec_err}[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

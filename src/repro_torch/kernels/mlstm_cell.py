@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, forward_only
 
 NEG_INF = -1e30
 
@@ -234,4 +234,5 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mlstm_chunk_plain(q, k, v, ilog, flog, C0, n0, m0)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk runs on cuda or cpu, not {q.device}")
+    forward_only("mlstm_chunk", q, k, v, ilog, flog, C0, n0, m0)
     return _launch(q, k, v, ilog, flog, C0, n0, m0)

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, forward_only
 
 NEG_INF = -1e30
 
@@ -311,5 +311,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    forward_only("paged_attention", q, k_pages, v_pages)
     return _launch(q, k_pages, v_pages, block_tables, context_lens,
                    soft_cap=soft_cap)

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, forward_only
 
 NEG_INF = -1e30
 
@@ -151,4 +151,5 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill runs on cuda or cpu, not "
                          f"{q.device}")
+    forward_only("flash_prefill", q, k, v)
     return _launch(q, k, v, kv_offset, window, soft_cap)

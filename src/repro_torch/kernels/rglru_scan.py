@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, forward_only
 
 #: kernel launches since the last reset (CUDA tensors only)
 LAUNCHES = 0
@@ -202,4 +202,5 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
         return rglru_scan_plain(a, x, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu, not {a.device}")
+    forward_only("rglru_scan", a, x, h0)
     return _launch(a, x, h0)

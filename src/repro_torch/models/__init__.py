@@ -1,5 +1,6 @@
-"""Models of the port: configuration, layers, attention, the dense
-attention-only ``Model`` and the converter from the reference's
+"""Models of the port: configuration, layers, attention, recurrent
+blocks, the block-pattern ``Model`` (Whisper's encoder-decoder and
+``forward_train`` included) and the converter from the reference's
 parameter pytree."""
 from .config import KV_BLOCKS, ModelConfig, dense_pattern
 from .model import Model

@@ -1,5 +1,6 @@
 """GQA attention: prefill, cached chunked prefill and cached decode — port
-of ``repro.models.attention`` for the ``attn`` and ``swa`` block kinds.
+of ``repro.models.attention`` for the ``attn``, ``swa`` and ``xattn``
+block kinds.
 
 ``attn_prefill`` (the plain full forward, the reference for the engine
 path) keeps the reference's dense and blockwise scaled-dot-product
@@ -34,7 +35,23 @@ or a stored fragment's tail) and differs from its own full forward
 (ROADMAP Queue C.10).  The port computes the full forward's function.
 
 Both serving entry points update the cache tensors in place (the
-reference returns new ones).  ``xattn`` blocks are not ported.
+reference returns new ones).
+
+``xattn`` blocks (Whisper's decoder) add cross-attention over the
+encoder's output, with no mask, to their causal self-attention (which
+runs as ``attn``).  The cross K/V live in a cache of their own, ``(B,
+X, KV, hd)`` with ``X = cross_rows(enc_seq)`` (``enc_seq`` rounded up to
+the decode page, so that the decode view pages it; the padding rows are
+never read):
+
+* ``attn_prefill`` computes them from ``enc_out`` and attends plainly;
+* ``attn_prefill_cached`` computes them from ``enc_out`` when it is
+  given and writes them into the cross cache, else reads them from it;
+  the chunk attends through ``flash_prefill`` over the cache's first
+  ``enc_seq`` rows with ``kv_offset = enc_seq`` (row i sees key j iff
+  ``j <= enc_seq + i``: every key);
+* ``attn_decode`` attends through ``paged_attention`` over the cross
+  cache's paged view with ``context_lens = enc_seq``.
 """
 from __future__ import annotations
 
@@ -58,10 +75,18 @@ DECODE_PAGE = 16
 NEG_INF = -1e30
 
 
+KINDS = ("attn", "swa", "xattn")
+
+
 def _check_kind(kind: str):
-    if kind not in ("attn", "swa"):
-        raise NotImplementedError(f"attention kind {kind!r} is not ported to "
-                                  "repro_torch yet (ROADMAP Queue A)")
+    if kind not in KINDS:
+        raise ValueError(f"attention kind {kind!r} is not one of {KINDS}")
+
+
+def cross_rows(enc_seq: int) -> int:
+    """Rows of an ``xattn`` block's cross cache: ``enc_seq`` rounded up to
+    a whole number of decode pages (1500 -> 1504)."""
+    return -(-enc_seq // DECODE_PAGE) * DECODE_PAGE
 
 
 def init_attention(gen, cfg: ModelConfig, kind: str):
@@ -78,7 +103,27 @@ def init_attention(gen, cfg: ModelConfig, kind: str):
     if cfg.qk_norm:
         p["q_norm"] = init_norm(hd, dtype, gen.device)
         p["k_norm"] = init_norm(hd, dtype, gen.device)
+    if kind == "xattn":
+        eD = cfg.enc_d_model or D
+        p["xwq"] = init_linear(gen, D, H * hd, dtype)
+        p["xwk"] = init_linear(gen, eD, KV * hd, dtype)
+        p["xwv"] = init_linear(gen, eD, KV * hd, dtype)
+        p["xwo"] = init_linear(gen, H * hd, D, dtype)
     return p
+
+
+def cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The cross K/V of an ``xattn`` block: (B, enc_seq, KV, hd) each."""
+    B, eS, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return (linear(p["xwk"], enc_out).reshape(B, eS, KV, hd),
+            linear(p["xwv"], enc_out).reshape(B, eS, KV, hd))
+
+
+def _cross_q(p, x, cfg: ModelConfig):
+    B, S, _ = x.shape
+    return linear(p["xwq"], x).reshape(B, S, cfg.n_heads,
+                                       cfg.resolved_head_dim)
 
 
 def _qkv(p, x, cfg: ModelConfig, positions):
@@ -171,11 +216,14 @@ def _blockwise_sdpa(q, k, v, positions, window=None, soft_cap=0.0,
 # public entry points
 # ---------------------------------------------------------------------------
 
-def attn_prefill(p, x, positions, cfg: ModelConfig,
-                 kind: str) -> Tuple[torch.Tensor, Tuple]:
+def attn_prefill(p, x, positions, cfg: ModelConfig, kind: str,
+                 enc_out=None) -> Tuple[torch.Tensor, Tuple]:
     """The plain full forward.  Returns (y, (k, v)) with k/v the prompt's
     (B, S, KV, hd) cache entries; for ``swa`` the last ``window`` keys as a
-    (B, window, KV, hd) ring (slot ``pos % window``, unwritten slots 0)."""
+    (B, window, KV, hd) ring (slot ``pos % window``, unwritten slots 0);
+    for ``xattn`` (y, (k, v, xk, xv)), with the cross attention over
+    ``enc_out`` (B, enc_seq, enc_d_model) added and its (B, enc_seq, KV,
+    hd) K/V."""
     _check_kind(kind)
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
@@ -189,6 +237,10 @@ def attn_prefill(p, x, positions, cfg: ModelConfig,
             mask &= (i - j) < window
         y = _sdpa(q, k, v, mask, cfg.logit_soft_cap)
     y = linear(p["wo"], y.reshape(B, S, -1))
+    if kind == "xattn":
+        xk, xv = cross_kv(p, enc_out, cfg)
+        xy = _sdpa(_cross_q(p, x, cfg), xk, xv, None, cfg.logit_soft_cap)
+        return y + linear(p["xwo"], xy.reshape(B, S, -1)), (k, v, xk, xv)
     if window is None:
         return y, (k, v)
     W = window
@@ -220,8 +272,9 @@ def prefill_plan(kind: str, lens: Sequence[int], Sc: int, S: int,
     picks, from the ring followed by the chunk, those positions in order
     and then the chunk (``Sk = max(kept) + Sc``; rows past a shorter row's
     end repeat its last token, masked by causality), with
-    ``kv_offset = kept``."""
-    if kind == "attn":
+    ``kv_offset = kept``.  ``xattn`` plans its self-attention as
+    ``attn``."""
+    if kind in ("attn", "xattn"):
         kv_len = max(lens) + Sc
         if kv_len > S:
             raise ValueError(f"cache_len + chunk = {kv_len} exceeds the "
@@ -243,7 +296,7 @@ def prefill_plan(kind: str, lens: Sequence[int], Sc: int, S: int,
 
 def attn_prefill_cached(p, x, positions, cfg: ModelConfig, kind: str,
                         cache_k: torch.Tensor, cache_v: torch.Tensor,
-                        plan: Dict[str, Any]):
+                        plan: Dict[str, Any], cross=None):
     """Chunked prefill continuing a cache (the engine's hot path: a KV$ hit
     skips compute because only the chunk's new tokens are processed).
 
@@ -251,13 +304,16 @@ def attn_prefill_cached(p, x, positions, cfg: ModelConfig, kind: str,
     ``cache_len[b] + arange(S_c)``; cache_k/cache_v: (B, S, KV, hd) (for
     ``swa`` the ring), written in place at the chunk's positions (``swa``:
     ``pos % S``); plan: ``prefill_plan(kind, cache_len, S_c, S)``.
+    ``xattn`` takes ``cross = (xk, xv, enc_out)``: the (B, X, KV, hd)
+    cross cache and the encoder's output (B, enc_seq, eD) or None (then
+    the cache holds the cross K/V; given, it is written with them).
     Returns y (B, S_c, D)."""
     _check_kind(kind)
     B, Sc, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     S = cache_k.shape[1]
     bidx = torch.arange(B, device=x.device)[:, None]
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         slot = torch.clamp_max(positions, S - 1).long()
         cache_k[bidx, slot] = k
         cache_v[bidx, slot] = v
@@ -275,7 +331,22 @@ def attn_prefill_cached(p, x, positions, cfg: ModelConfig, kind: str,
         slot = (positions[:, tail] % S).long()
         cache_k[bidx, slot] = k[:, tail]
         cache_v[bidx, slot] = v[:, tail]
-    return linear(p["wo"], y.reshape(B, Sc, -1))
+    y = linear(p["wo"], y.reshape(B, Sc, -1))
+    if kind == "xattn":
+        xk, xv, enc_out = cross
+        eS = cfg.enc_seq
+        if enc_out is not None:
+            if enc_out.shape[1] != eS:
+                raise ValueError(f"enc_out has {enc_out.shape[1]} frames, "
+                                 f"the config {eS}")
+            nk, nv = cross_kv(p, enc_out, cfg)
+            xk[:, :eS] = nk
+            xv[:, :eS] = nv
+        offs = torch.full((B,), eS, dtype=torch.int32, device=x.device)
+        xy = flash_prefill(_cross_q(p, x, cfg), xk[:, :eS], xv[:, :eS], offs,
+                           soft_cap=cfg.logit_soft_cap)
+        y = y + linear(p["xwo"], xy.reshape(B, Sc, -1))
+    return y
 
 
 def decode_tables(B: int, S: int, device) -> torch.Tensor:
@@ -290,18 +361,20 @@ def decode_tables(B: int, S: int, device) -> torch.Tensor:
 
 def attn_decode(p, x, pos: torch.Tensor, cfg: ModelConfig, kind: str,
                 cache_k: torch.Tensor, cache_v: torch.Tensor,
-                block_tables: torch.Tensor):
+                block_tables: torch.Tensor, cross=None):
     """One-token decode.  x: (B, 1, D); pos: (B,) absolute position of the
     new token; cache_k/cache_v: (B, S, KV, hd), written in place at
     ``min(pos, S-1)`` (``swa``: the ring, at ``pos % S``); block_tables:
-    ``decode_tables(B, S)``.  Returns y (B, 1, D)."""
+    ``decode_tables(B, S)``.  ``xattn`` takes ``cross = (xk, xv,
+    x_tables)``: the (B, X, KV, hd) cross cache and
+    ``decode_tables(B, X)``.  Returns y (B, 1, D)."""
     _check_kind(kind)
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None])
     S = cache_k.shape[1]
     bidx = torch.arange(B, device=x.device)
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         slot = torch.clamp_max(pos, S - 1).long()
     else:
         slot = (pos % S).long()
@@ -311,4 +384,14 @@ def attn_decode(p, x, pos: torch.Tensor, cfg: ModelConfig, kind: str,
     ctx = (torch.clamp_max(pos, S - 1) + 1).to(torch.int32)
     y = paged_attention(q[:, 0], cache_k.view(pages), cache_v.view(pages),
                         block_tables, ctx, cfg.logit_soft_cap)
-    return linear(p["wo"], y.reshape(B, 1, H * hd))
+    y = linear(p["wo"], y.reshape(B, 1, H * hd))
+    if kind == "xattn":
+        xk, xv, x_tables = cross
+        xpages = (B * xk.shape[1] // DECODE_PAGE, DECODE_PAGE, KV, hd)
+        xctx = torch.full((B,), cfg.enc_seq, dtype=torch.int32,
+                          device=x.device)
+        xy = paged_attention(_cross_q(p, x, cfg)[:, 0], xk.view(xpages),
+                             xv.view(xpages), x_tables, xctx,
+                             cfg.logit_soft_cap)
+        y = y + linear(p["xwo"], xy.reshape(B, 1, H * hd))
+    return y

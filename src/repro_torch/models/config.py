@@ -4,14 +4,13 @@ A model is a sequence of *blocks* drawn from a small vocabulary of block
 kinds, compiled into a *repeating unit* (``repeating_unit``) — the layout
 of the reference's stacked parameters, which ``models.convert`` unstacks.
 The dataclass keeps every field of the reference so a configuration is
-the same object in both packages; the port's ``Model`` serves the
-decoder-only patterns (``attn``, ``swa``, ``rglru``, ``mlstm``,
-``slstm``; dense or MoE FFNs) and refuses ``xattn`` and the encoder.
+the same object in both packages.
 
 Block kinds: ``attn`` (full causal GQA attention + FFN), ``swa``
 (sliding-window attention over a ring-buffer cache + FFN), ``rglru``
-(Griffin's RG-LRU + FFN), ``mlstm`` / ``slstm`` (xLSTM), ``xattn`` (not
-served by the port yet).
+(Griffin's RG-LRU + FFN), ``mlstm`` / ``slstm`` (xLSTM), ``xattn``
+(Whisper's decoder block: causal self-attention, cross-attention over
+the encoder's output, FFN).
 """
 from __future__ import annotations
 

@@ -7,7 +7,13 @@ along axis 0, and ``params["rest"]`` the remainder layers.  The port keeps
 one dict per layer (``layers[u * len(unit) + j]``, then the remainder).
 A MoE layer's leaves come along as they are: the experts' ``(E, D, F)``
 and ``(E, F, D)`` stacks and the float32 router.  PaliGemma's
-``vlm_proj`` is carried too.  Every leaf is copied bit for bit.  A bfloat16 leaf arrives as an
+``vlm_proj`` is carried too.  Whisper's encoder is stacked by
+``jax.vmap`` (every leaf under ``encoder/layers`` has a leading
+``enc_layers`` axis): it is split into one dict per encoder layer, and
+``encoder/final_norm`` and ``dec_pos`` come along as they are.  A
+gradient tree of the reference (``jax.grad`` over the parameters) has
+the parameters' structure and converts the same way.  Every leaf is
+copied bit for bit.  A bfloat16 leaf arrives as an
 ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses; it goes
 through its 16-bit pattern instead.
 """
@@ -58,8 +64,18 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any]
         "final_norm": _tree(tree["final_norm"], _tensor),
         "layers": layers,
     }
-    for name in ("lm_head", "vlm_proj"):
+    for name in ("lm_head", "vlm_proj", "dec_pos"):
         if name in tree:
             params[name] = _tree(tree[name], _tensor)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": [_tree(enc["layers"],
+                             lambda a, i=i: _tensor(np.asarray(a)[i]))
+                       for i in range(cfg.enc_layers)],
+            "final_norm": _tree(enc["final_norm"], _tensor)}
+    elif cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: an encoder-decoder's parameter tree "
+                         "needs its encoder")
     return params
 

@@ -30,7 +30,9 @@ measured wall times of the engine steps (each ending in a device
 synchronisation, since the host reads the sampled tokens).
 
 ``device`` (default ``"cuda"``) must be the model's device; only an
-explicit ``"cpu"`` runs the kernels' plain versions.
+explicit ``"cpu"`` runs the kernels' plain versions.  An encoder-decoder
+(Whisper) is refused, as the reference's engine refuses it; it runs at
+model level.
 """
 from __future__ import annotations
 
@@ -99,6 +101,10 @@ class InstanceEngine:
                  max_batch: int = 8, max_len: int = 512,
                  chunk_tokens: int = 128, block_size: int = 16,
                  prefix_capacity: int = 64, device="cuda"):
+        if model.cfg.is_encdec:
+            # as the reference's engine: Whisper is held at model level
+            raise ValueError(f"{model.cfg.name}: the engine does not serve "
+                             "an encoder-decoder")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "

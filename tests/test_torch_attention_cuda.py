@@ -333,3 +333,81 @@ def test_kernels_reject_unsupported_head_dim(card):
     bt = torch.zeros((1, 1), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head dims"):
         pa.paged_attention(q[:, 0], pages, pages, bt, offs)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_inputs_that_require_grad(card):
+    """The kernels have no backward: each wrapper raises on CUDA inputs of
+    which any requires grad (training runs the plain functions), and
+    launches nothing; inputs computed under ``torch.no_grad()`` from ones
+    that require grad do not, and launch."""
+    from repro_torch.kernels import mlstm_cell as mc
+    from repro_torch.kernels import rglru_scan as rg
+    rng = np.random.RandomState(4)
+
+    def r(*shape):
+        return _randn(rng, shape, torch.float32, card)
+
+    q, k, v = r(1, 8, 2, 64), r(1, 8, 2, 64), r(1, 8, 2, 64)
+    offs = torch.zeros(1, dtype=torch.int32, device=card)
+    kp, vp = r(4, 16, 2, 64), r(4, 16, 2, 64)
+    bt = torch.arange(4, dtype=torch.int32, device=card)[None]
+    ctx = torch.full((1,), 40, dtype=torch.int32, device=card)
+    a, x, h0 = r(1, 8, 32).sigmoid(), r(1, 8, 32), r(1, 32)
+    mq = r(1, 8, 2, 64)
+    gates = (r(1, 8, 2), r(1, 8, 2))
+    state = (r(1, 2, 64, 64), r(1, 2, 64), r(1, 2))
+    calls = {
+        "flash_prefill": (fp, lambda t: fp.flash_prefill(t(q), k, v, offs)),
+        "paged_attention": (pa, lambda t: pa.paged_attention(
+            t(q[:, 0]), kp, vp, bt, ctx)),
+        "rglru_scan": (rg, lambda t: rg.rglru_scan(t(a), x, h0)),
+        "mlstm_chunk": (mc, lambda t: mc.mlstm_chunk(
+            t(mq), mq, mq, *gates, *state)),
+    }
+    for name, (mod, call) in calls.items():
+        before = mod.LAUNCHES
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(lambda t: t.clone().requires_grad_(True))
+        assert mod.LAUNCHES == before, name
+        with torch.no_grad():
+            call(lambda t: t.clone().requires_grad_(True) * 1)
+        call(lambda t: t)
+        assert mod.LAUNCHES == before + 2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_kernels_at_whisper_shapes(card, dtype):
+    """Whisper's attention shapes (hd 64, one query head per KV head):
+    the encoder's unmasked attention (``kv_offset = Sk = Sq``, queries
+    beyond the keys), a cross chunk over the first ``enc_seq`` rows of a
+    page-padded cross cache, and cross decode over its paged view with
+    ``context_lens = enc_seq``; the padding rows hold large values that
+    must not be read."""
+    rng = np.random.RandomState(12)
+    B, S, H, hd, X = 2, 300, 16, 64, 304
+    qs = Q_SCALE[dtype]
+    q, k, v = (_randn(rng, (B, S, H, hd), dtype, card, s)
+               for s in (qs, 0.5, 0.5))
+    offs = torch.full((B,), S, dtype=torch.int32, device=card)
+    _assert_close(fp.flash_prefill(q, k, v, offs),
+                  fp.flash_prefill_plain(q, k, v, offs), dtype)
+    xk = _randn(rng, (B, X, H, hd), dtype, card)
+    xv = _randn(rng, (B, X, H, hd), dtype, card)
+    xk[:, S:], xv[:, S:] = 1e3, 1e3
+    for Sq in (1, 37):
+        qc = _randn(rng, (B, Sq, H, hd), dtype, card, qs)
+        got = fp.flash_prefill(qc, xk[:, :S], xv[:, :S], offs)
+        want = fp.flash_prefill_plain(qc, xk[:, :S].contiguous(),
+                                      xv[:, :S].contiguous(), offs)
+        _assert_close(got, want, dtype)
+    pages = (B * X // 16, 16, H, hd)
+    bt = torch.arange(B * X // 16, dtype=torch.int32,
+                      device=card).reshape(B, -1)
+    qd = _randn(rng, (B, H, hd), dtype, card, qs)
+    got = pa.paged_attention(qd, xk.view(pages), xv.view(pages), bt, offs)
+    want = pa.paged_attention_plain(qd, xk.view(pages), xv.view(pages), bt,
+                                    offs)
+    _assert_close(got, want, dtype)
+    assert bool(torch.isfinite(got.float()).all())

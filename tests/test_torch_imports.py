@@ -51,7 +51,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "core.sharded_index", "core.hotspot", "obs",
                 "obs.registry", "obs.trace", "obs.provenance",
                 "core.fleet", "core.overload", "workloads.sessions",
-                "cluster.closed_loop", "configs.qwen3_30b_moe"):
+                "cluster.closed_loop", "configs.qwen3_30b_moe",
+                "configs.whisper_medium", "data.pipeline",
+                "training.optim", "training.train_loop",
+                "training.checkpoint", "launch.train"):
         assert f"repro_torch.{mod}" in names, mod
 
 

@@ -189,32 +189,34 @@ def test_blockwise_prefill_matches_jax():
 
 
 def test_unported_configs_raise():
-    """Only the encoder-decoder is left: ``whisper_medium`` (and its
-    variants) and ``Model`` on an ``xattn`` block or an encoder raise;
-    MoE, VLM, soft-capped and sliding-window configs build and run."""
-    for name in ("whisper_medium", "whisper_medium-smoke",
-                 "whisper_medium-swa"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
+    """Every id of the reference is ported now: ``get_config`` raises only
+    ``KeyError``, for an unknown id, and every id in ``ARCH_IDS`` --
+    ``whisper_medium`` included, with its frames -- builds at smoke size
+    and runs ``prefill``; MoE, VLM, soft-capped and sliding-window
+    configs too."""
     with pytest.raises(KeyError):
         get_config("no_such_model")
-    cfg = get_config("qwen2_7b-smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(dataclasses.replace(cfg, block_pattern=("attn", "xattn")),
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder"):
-        Model(dataclasses.replace(cfg, enc_layers=2, enc_seq=8),
-              device="cpu")
+    with pytest.raises(KeyError):
+        get_config("no_such_model-smoke")
+    assert "whisper_medium" in ARCH_IDS
     toks = torch.tensor([[3, 1, 4, 1, 5]])
-    for built in (dataclasses.replace(cfg, n_experts=4, top_k=2),
-                  dataclasses.replace(cfg, logit_soft_cap=30.0),
-                  get_config("paligemma_3b-smoke"),
-                  get_config("qwen2_7b-swa-smoke"),
-                  get_config("granite_moe_3b_a800m-smoke")):
-        m = Model(built, device="cpu")
-        logits, _ = m.prefill(m.init(torch.Generator().manual_seed(0)), toks)
-        assert tuple(logits.shape) == (1, 5, built.vocab_size)
+    cfg = get_config("qwen2_7b-smoke")
+    built = [get_config(a + "-smoke") for a in ARCH_IDS] + [
+        dataclasses.replace(cfg, n_experts=4, top_k=2),
+        dataclasses.replace(cfg, logit_soft_cap=30.0),
+        get_config("qwen2_7b-swa-smoke")]
+    for c in built:
+        m = Model(c, device="cpu")
+        batch = None
+        if c.is_encdec:
+            batch = {"frames": np.zeros((1, c.enc_seq, c.enc_d_model),
+                                        np.float32)}
+        logits, _ = m.prefill(m.init(torch.Generator().manual_seed(0)),
+                              toks, batch)
+        assert tuple(logits.shape) == (1, 5, c.vocab_size), c.name
+        assert bool(torch.isfinite(logits).all()), c.name
     assert get_config("qwen2_7b-swa").block_pattern == ("swa",) * 28
+    assert get_config("whisper_medium").block_pattern == ("xattn",) * 24
 
 
 def test_port_config_equals_reference():
