@@ -213,15 +213,40 @@ Phases (each raises on failure, so any failure exits nonzero):
    at full width in f32 (``train_cut_check``): one step on the card
    against the same step on the CPU, and one ``accum_steps=2`` step
    against the unsplit one; prints the memory reckoning, losses, step
-   wall, tokens/s and peak memory.
+   wall, tokens/s, its share of the dense bf16 peak by ``model_flops_at``
+   (6 N D) and peak memory;
+20. the serving launcher and the layout modules — both attention kernels
+   against their plain versions at the launcher's served shapes
+   (``check_serve_attention``: Qwen3-4B's 32 q over 8 KV heads, G = 4, hd
+   128; chunks of up to 64 queries over a slot of a (4, 256) cache, decode
+   over the slots' pages), f32 and bf16 within ``ATTN_TOL``; then
+   Qwen3-4B at full width and depth (36 layers, d 2560, tied vocab
+   151936, bf16; the reference launcher's default arch) served by
+   ``repro_torch.launch.serve.run`` -- what ``main`` calls -- once per
+   policy (lmetric, vllm, linear) on one model and one set of parameters
+   (``serve.init_params``: seed 0), the reference launcher's 40 arrivals
+   each, its engine settings (4 engines x 4 slots x 256 tokens, 64-token
+   chunks): every request finishes, the attention launches equal
+   ``expected_launches``, and a follow-up turn (of a request whose
+   prefill stalled on the last slot while others decoded, where one did)
+   is held to the plain full forward (``LOGIT_ATOL``, ``LOGIT_REL_RMS``); prints each ``fmt_row``,
+   TTFT / TPOT means, step walls and peak memory; then ``python -m
+   repro_torch.launch.serve --arch qwen3_4b --policy lmetric`` (the smoke
+   config, as the reference serves) in a subprocess must exit 0 with a
+   row of 40 finished requests, and ``--dry-run`` must exit non-zero with
+   the ``NotImplementedError``; then ``model_flops`` and
+   ``analytic_flops`` of every assigned arch x input shape at full size on
+   ``meta``, and every parameter and decode-cache spec on the 16 x 16 and
+   2 x 16 x 16 meshes must divide its dims.
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed),
 then phase 14's requests, then the requests of each of phase 13's
 comparison runs (never below 500), then phase 15's closed-loop sessions
 (halved), then Granite-MoE's requests (to 8), then Whisper's clips (to
-4), then the training steps (to 10, the checkpoint after 5); the
-recurrent, MoE, Whisper and training paths keep their width and depth,
+4), then the training steps (to 10, the checkpoint after 5), then phase
+20's requests (to 10 a policy); the recurrent, MoE, Whisper, training
+and launcher paths keep their width and depth,
 no run is dropped, and no path keeps fewer instances.  Shard
 workers are spawned processes that re-import this file as their main
 module, which is why it imports ``torch`` only inside ``main()``.
@@ -857,23 +882,25 @@ def serving_requests(vocab, w=WORKLOADS["qwen2_7b"]):
     return arrivals, groups, prefixes
 
 
-def check_prompt(served, vocab):
-    """The logit check's follow-up turn: a served prompt plus 700 new
-    tokens (seeded)."""
+def check_prompt(served, vocab, extra=700):
+    """The logit check's follow-up turn: a served prompt plus ``extra``
+    new tokens (seeded)."""
     rng = np.random.RandomState(SEED + 1)
-    return np.concatenate([served, rng.randint(0, vocab, 700)]).astype(
+    return np.concatenate([served, rng.randint(0, vocab, extra)]).astype(
         np.int32)
 
 
 def logits_vs_plain(torch, engines, model, params, arrivals,
-                    tol=(LOGIT_ATOL, LOGIT_REL_RMS)):
-    """A follow-up turn of a served prompt (the prompt plus 700 new
+                    tol=(LOGIT_ATOL, LOGIT_REL_RMS), extra=700,
+                    min_hit=SYS_PREFIX):
+    """A follow-up turn of a served prompt (the prompt plus ``extra`` new
     tokens), served step by step by the engine that still holds that
-    prompt's fragment: its first-token logits (injected fragment +
-    chunked prefill through the kernels) and those of its next two decode
-    steps against ``Model.prefill``, the plain full forward, over the
-    same tokens, within ``tol`` = (max |diff|, RMS ratio).  Returns the
-    comparisons, each with the request's hit."""
+    prompt's fragment (a hit of at least ``min_hit`` tokens): its
+    first-token logits (injected fragment + chunked prefill through the
+    kernels) and those of its next two decode steps against
+    ``Model.prefill``, the plain full forward, over the same tokens,
+    within ``tol`` = (max |diff|, RMS ratio).  Returns the comparisons,
+    each with the request's hit."""
     atol, rel_rms = tol
     from repro_torch.core import Request
     from repro_torch.core.radix import tokens_to_blocks
@@ -889,7 +916,7 @@ def logits_vs_plain(torch, engines, model, params, arrivals,
     if pick is None:
         raise AssertionError("no engine holds a served prompt's fragment")
     eng, served = pick
-    prompt = check_prompt(served, model.cfg.vocab_size)
+    prompt = check_prompt(served, model.cfg.vocab_size, extra)
     got = []                # each engine step's logits
     pre, dec = eng._prefill, eng._decode
 
@@ -913,7 +940,7 @@ def logits_vs_plain(torch, engines, model, params, arrivals,
         if ev["first"]:
             first_seen = len(got)
     eng._prefill, eng._decode = pre, dec
-    if req.hit_tokens < SYS_PREFIX:
+    if req.hit_tokens < min_hit:
         raise AssertionError(f"check request hit {req.hit_tokens} tokens")
     seq = ev["finished"][0]
     engine_logits = [got[first_seen - 1]] + [
@@ -1046,10 +1073,11 @@ def _launch_counters():
             "mlstm_cell": mlstm_cell}
 
 
-def expected_launches(cfg, chunks, decodes, on_card):
+def expected_launches(cfg, chunks, decodes, on_card, engines=ENGINES,
+                      chunk=CHUNK):
     """Launches of each serving kernel for the chunk sizes ``chunks`` and
-    ``decodes`` decode steps, each engine's warm-up (one chunk of
-    min(CHUNK, 8) tokens and one decode step) included: one attention
+    ``decodes`` decode steps, each of the ``engines``' warm-up (one chunk
+    of min(chunk, 8) tokens and one decode step) included: one attention
     launch per attention layer and chunk or step, one ``rglru_scan`` per
     RG-LRU layer and chunk, ``ceil(n / 256)`` ``mlstm_cell`` per mLSTM
     layer and chunk of n tokens (the reference's chunking), none for
@@ -1059,9 +1087,9 @@ def expected_launches(cfg, chunks, decodes, on_card):
         return dict.fromkeys(_launch_counters(), 0)
     kinds = collections.Counter(cfg.block_pattern)
     n_attn = kinds["attn"] + kinds["swa"]
-    sizes = list(chunks) + [min(CHUNK, 8)] * ENGINES
+    sizes = list(chunks) + [min(chunk, 8)] * engines
     return {"prefill_attention": n_attn * len(sizes),
-            "paged_attention": n_attn * (decodes + ENGINES),
+            "paged_attention": n_attn * (decodes + engines),
             "rglru_scan": kinds["rglru"] * len(sizes),
             "mlstm_cell": kinds["mlstm"] * sum(-(-n // MLSTM_CHUNK)
                                               for n in sizes)}
@@ -2585,8 +2613,10 @@ FAULT_CRASHES, FAULT_STALLS, FAULT_STALL_S = 2, 2, 0.05
 #: the simulator's sharded router (thread backend, speculating)
 SIM_SHARDS = 4
 #: past this point phase 14 routes SHARD_CUT_REQUESTS requests (never
-#: fewer instances)
-SHARD_CUT_AFTER_S, SHARD_CUT_REQUESTS = 700.0, 512
+#: fewer instances); a run at the usual pace reaches phase 14 at ~370 s
+#: on an H100, so only a run ~15% slower is cut, before the later phases
+#: could push it past the time limit
+SHARD_CUT_AFTER_S, SHARD_CUT_REQUESTS = 420.0, 512
 #: the mirror's dirty-range sets timed by ``time_mirror`` (8 ranges)
 MIRROR_SETS = {"1 range": (0,), "4 adjacent": (0, 1, 2, 3),
                "4 apart": (0, 2, 4, 6), "all 8": tuple(range(8))}
@@ -3021,8 +3051,9 @@ CL_BASE, CL_SEED, CL_MULTS = 0.75, 11, (1.0, 20.0)
 CL_FAIL = (20.0, 110.0, 3)
 CL_PD_SESSIONS = 100
 #: past this point phase 15 runs CL_CUT of the closed loop's sessions
-#: (never fewer requests in the open-loop runs, never fewer instances)
-CL_CUT_AFTER_S, CL_CUT = 900.0, 0.5
+#: (never fewer requests in the open-loop runs, never fewer instances);
+#: reached at ~555 s at the usual pace on an H100
+CL_CUT_AFTER_S, CL_CUT = 630.0, 0.5
 
 
 class WaveLedger:
@@ -4134,9 +4165,15 @@ def report_train(gpu, tp, cut):
           f"mean {np.mean(tp['losses'][:5]):.4f} > last 5 mean "
           f"{np.mean(tp['losses'][-5:]):.4f}; gradient norms "
           f"{[round(x, 3) for x in tp['gnorms']]}")
+    from repro_torch.launch.shapes import model_flops_at
+    mf = model_flops_at(cfg, "train", tp["S"], tp["B"])
     print(f"{tag} step wall median {med * 1e3:.1f} ms (first step "
           f"{tp['walls'][0] * 1e3:.1f}), {tokens / med:.0f} tokens/s; "
           f"kernel launches {tp['launches']} (training runs no kernel)")
+    print(f"{tag} model_flops_at(train, {tp['S']}, {tp['B']}) = 6 N D = "
+          f"{mf:.6g} FLOP a step (remat's second forward not counted): "
+          f"{mf / med / 1e12:.1f} TFLOP/s, {mf / med / BF16_OPS_PER_S:.2%} "
+          f"of the {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak")
     print(f"{tag} checkpoint after step {tp['save_at']}: "
           f"{tp['ckpt_bytes'] / 1e9:.2f} GB on disk, saved in "
           f"{tp['save_s']:.1f} s, restored into fresh tensors in "
@@ -4154,6 +4191,382 @@ def report_train(gpu, tp, cut):
               f"(limit 1e-3) where the clipped gradient >= 1e3 eps, "
               f"{wide:.3g} lr over {n_wide} elements below it (limit 2.01)")
     print(f"{tag} depth-cut step walls {cut['walls']} s")
+
+
+# ---------------------------------------------------------------------------
+# the serving launcher and the layout modules (phase 20)
+# ---------------------------------------------------------------------------
+#: phase 20: ``launch/serve.py``'s ``run`` on the reference launcher's
+#: default arch at full width and depth, its 40 arrivals once per policy;
+#: past SERVE_CUT_AFTER_S each run serves SERVE_CUT_REQUESTS (never fewer,
+#: never a narrower or shallower model)
+SERVE_ARCH, SERVE_REQUESTS = "qwen3_4b", 40
+SERVE_POLICIES = ("lmetric", "vllm", "linear")
+SERVE_CUT_AFTER_S, SERVE_CUT_REQUESTS = 1000.0, 10
+#: the logit check's follow-up turn: the served prompt (104-127 tokens,
+#: its 96-token app prompt stored) plus SERVE_EXTRA tokens, within the
+#: launcher's 256-token slots
+SERVE_EXTRA, SERVE_MIN_HIT = 64, 96
+#: Qwen3-4B's attention widths (src/repro_torch/configs/qwen3_4b.py): 32 q
+#: over 8 KV heads (G = 4), hd 128; the launcher's slots of 256 rows
+Q4_H, Q4_KV, Q4_HD, SERVE_SLOTS, SERVE_ROWS = 32, 8, 128, 4, 256
+
+
+def check_serve_attention(torch):
+    """Phase 20a: both attention kernels against their plain versions at
+    the launcher's served shapes (G = 4, hd 128), f32 and bf16 within
+    ``ATTN_TOL``: chunks of up to 64 queries of slot 2 of a (4, 256, 8,
+    128) cache (a batch-strided view, as ``prefill_cached`` passes it) at
+    offsets 0, 64, 96 (a hit on the app prompt) and 192, a ragged 23-token
+    tail and a one-token chunk at 255; decode over the slots' paged view
+    (16 pages of 16 a slot) at contexts (1, 100, 255, 256) and (17, 64,
+    130, 200)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as fp
+    from repro_torch.models.attention import decode_tables
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 20)
+
+    def rand(shape, dtype, scale=0.5):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(dev, dtype)
+
+    B, S, H, KV, hd = SERVE_SLOTS, SERVE_ROWS, Q4_H, Q4_KV, Q4_HD
+    worst = {"prefill_attention": 0.0, "paged_attention": 0.0}
+    report = []
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        qs = ATTN_Q_SCALE[name]
+        kc, vc = rand((B, S, KV, hd), dtype), rand((B, S, KV, hd), dtype)
+        for Sq, off in ((64, 0), (64, 64), (64, 96), (64, 192), (23, 120),
+                        (1, 255)):
+            q = rand((1, Sq, H, hd), dtype, qs)
+            k, v = kc[2:3, :off + Sq], vc[2:3, :off + Sq]
+            offs = torch.full((1,), off, dtype=torch.int32, device=dev)
+            got = fp.flash_prefill(q, k, v, offs)
+            want = fp.flash_prefill_plain(q, k, v, offs)
+            torch.cuda.synchronize()
+            worst["prefill_attention"] = max(
+                worst["prefill_attention"], _attn_err(
+                    got, want, name, f"served chunk {name} {H}/{KV} hd {hd}"
+                    f" Sq={Sq} off={off} (slot 2 of {B} x {S})", report))
+        pages = (B * S // KV_BLOCK, KV_BLOCK, KV, hd)
+        bt = decode_tables(B, S, dev)
+        for ctx in ((1, 100, 255, 256), (17, 64, 130, 200)):
+            q = rand((B, H, hd), dtype, qs)
+            cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+            got = pa.paged_attention(q, kc.view(pages), vc.view(pages), bt,
+                                     cl)
+            want = pa.paged_attention_plain(q, kc.view(pages),
+                                            vc.view(pages), bt, cl)
+            torch.cuda.synchronize()
+            splits, grid = pa.launch_config(q, kc.view(pages), bt)
+            worst["paged_attention"] = max(
+                worst["paged_attention"], _attn_err(
+                    got, want, name, f"served decode {name} {H}/{KV} hd "
+                    f"{hd} B={B}, {S // KV_BLOCK} pages of {KV_BLOCK} a "
+                    f"slot, contexts {list(ctx)} (splits {splits}, grid "
+                    f"{grid})", report))
+    return worst, report
+
+
+def serve_path(torch, device="cuda", n_req=SERVE_REQUESTS, arch=SERVE_ARCH):
+    """Phase 20b: ``arch`` at full width and depth (bf16, parameters of
+    ``serve.init_params``: seed 0 on the card), served by
+    ``repro_torch.launch.serve.run`` -- the function ``main`` calls, with
+    the full config where ``main`` passes the smoke one -- once per policy
+    of ``SERVE_POLICIES`` on one model and one set of parameters, the
+    reference launcher's first ``n_req`` arrivals each.  Each run: every
+    request finishes, the launches (counted from zero just before the run,
+    the engines' warm-ups included) equal ``expected_launches`` from its
+    chunks and decode steps, and the follow-up turn of a served prompt
+    (``check_arrival``: one whose prefill stalled, where one did) is held
+    to the plain full forward (``logits_vs_plain``) within
+    (``LOGIT_ATOL``, ``LOGIT_REL_RMS``).  Each run's cluster is freed
+    before the next.  ``device="cpu", arch="qwen3_4b-smoke"`` rehearses
+    it (no launches there)."""
+    from repro_torch.cluster.metrics import summarize
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    cfg = get_config(arch)
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device)
+    params = serve.init_params(model)
+    sync()
+    t_init = time.perf_counter() - t0
+    mem = (lambda: torch.cuda.memory_allocated()) if on_card else \
+        (lambda: 0)
+    out = {"cfg": cfg, "n_req": n_req, "init_s": t_init,
+           "n_params": sum(t.numel() for t in _leaves(params)),
+           "mem_weights": mem(), "runs": {}}
+    arrivals = serve.make_arrivals(n_req)
+    counters = _launch_counters()
+    for policy in SERVE_POLICIES:
+        steps, stalls = [], []
+
+        def prepare(cluster):
+            for eng in cluster.engines:
+                def logged(step=eng.step):
+                    ev = step()
+                    steps.append((ev["kind"], ev["prefill_tokens"],
+                                  ev["wall"]))
+                    return ev
+
+                def hold(h=eng._hold_stalled, eng=eng):
+                    held = h()
+                    if held is not None:
+                        stalls.append(eng.waiting[0].req.rid)
+                    return held
+                eng.step = logged
+                eng._hold_stalled = hold
+            out["mem_engines"] = mem()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            for m in counters.values():
+                m.LAUNCHES = 0
+
+        t0 = time.perf_counter()
+        served = serve.run(cfg, policy, params=params, device=device,
+                           requests=n_req, prepare=prepare)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: m.LAUNCHES for k, m in counters.items()}
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        chunks = [s[1] for s in steps if s[0] == "prefill"]
+        decodes = [s[2] for s in steps if s[0] == "decode"]
+        want = expected_launches(cfg, chunks, len(decodes), on_card,
+                                 engines=len(served.cluster.engines),
+                                 chunk=serve.ENGINE_KW["chunk_tokens"])
+        if launches != want:
+            raise AssertionError(f"{cfg.name} {policy}: launches {launches} "
+                                 f"!= {want} ({len(chunks)} chunks, "
+                                 f"{len(decodes)} decode steps)")
+        if len(served.done) != n_req:
+            raise AssertionError(f"{cfg.name} {policy}: {len(served.done)} "
+                                 f"of {n_req} requests finished")
+        pick = check_arrival(served.cluster.engines, arrivals, stalls)
+        checks = logits_vs_plain(torch, served.cluster.engines, model,
+                                 params, [arrivals[pick]], extra=SERVE_EXTRA,
+                                 min_hit=SERVE_MIN_HIT)
+        out["runs"][policy] = {
+            "row": served.row, "wall_s": wall, "launches": launches,
+            "peak": peak, "chunks": chunks, "decodes": decodes,
+            "chunk_walls": [s[2] for s in steps if s[0] == "prefill"],
+            "summary": summarize(served.done), "logit_checks": checks,
+            "stalls": collections.Counter(stalls), "checked": pick,
+            "instances": collections.Counter(r.sched_to
+                                             for r in served.done),
+            "hit_tokens": sum(r.hit_tokens for r in served.done)}
+        del served
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_arrival(engines, arrivals, stalled):
+    """The arrival whose follow-up turn phase 20b's logit check serves:
+    the last of those whose prefill stalled (``stalled``: request ids,
+    which are arrival indices) that an engine still holds whole, else the
+    last held.  A stalled request's fragment is the one the decode steps
+    of its stall would have overwritten (ROADMAP Queue C.17)."""
+    from repro_torch.core.radix import tokens_to_blocks
+
+    def held(i):
+        key = tuple(tokens_to_blocks(arrivals[i][1].tolist(), KV_BLOCK))
+        return any(e.prefix_store.lookup(key)[0] == key for e in engines)
+    order = sorted(set(stalled), reverse=True) + \
+        list(range(len(arrivals) - 1, -1, -1))
+    for i in order:
+        if held(i):
+            return i
+    raise AssertionError("no engine holds a served prompt's fragment")
+
+
+def report_serve(gpu, sp):
+    """Print phase 20b's numbers."""
+    cfg = sp["cfg"]
+    tag = f"[{gpu}] launcher {cfg.name}:"
+    kv = (4 * SERVE_SLOTS * SERVE_ROWS * cfg.n_layers * 2
+          * cfg.n_kv_heads * cfg.resolved_head_dim * 2)
+    print(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} q / {cfg.n_kv_heads} KV heads, hd "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size} (tied), "
+          f"{sp['n_params'] / 1e9:.3f} B parameters (bf16, seeded on the "
+          f"card in {sp['init_s']:.1f} s); launch.serve.run with 4 engines "
+          f"x 4 slots x 256 tokens, chunk 64; {sp['n_req']} arrivals of "
+          f"the reference launcher per policy")
+    print(f"{tag} memory: weights {sp['mem_weights'] / 2 ** 30:.2f} GiB, "
+          f"with one cluster's caches {sp['mem_engines'] / 2 ** 30:.2f} GiB"
+          f" (reckoned: {cfg.param_count() * 2 / 1e9:.2f} GB of weights + "
+          f"4 engines x 4 x 256 x {cfg.n_layers} x 2 x {cfg.n_kv_heads} x "
+          f"{cfg.resolved_head_dim} x 2 B = {kv / 1e9:.2f} GB of caches)")
+    med = (lambda v: float(np.median(v)) if v else float("nan"))
+    for policy, r in sp["runs"].items():
+        s = r["summary"]
+        print(f"{tag} {r['row']}")
+        print(f"{tag} {policy}: {s['n']} of {sp['n_req']} served in "
+              f"{r['wall_s']:.1f} s wall (warm-ups included); TTFT mean "
+              f"{s['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{s['tpot_mean'] * 1e3:.2f} ms (virtual time from measured "
+              f"step walls); {len(r['chunks'])} prefill chunks (median "
+              f"wall {med(r['chunk_walls']) * 1e3:.2f} ms), "
+              f"{len(r['decodes'])} decode steps (median "
+              f"{med(r['decodes']) * 1e3:.2f} ms); peak memory "
+              f"{r['peak'] / 2 ** 30:.2f} GiB; requests per instance "
+              f"{dict(sorted(r['instances'].items()))}; hit tokens "
+              f"{r['hit_tokens']}")
+        print(f"{tag} {policy}: kernel launches {r['launches']} == "
+              f"expected from {len(r['chunks'])} chunks, "
+              f"{len(r['decodes'])} decode steps and 4 warm-ups")
+        st = r["stalls"]
+        print(f"{tag} {policy}: {sum(st.values())} decode steps ran while "
+              f"a request stalled part-way through its prefill (its slot "
+              f"put back after each), requests {dict(sorted(st.items()))};"
+              f" the logit check serves the follow-up turn of arrival "
+              f"{r['checked']} "
+              f"({'stalled' if r['checked'] in st else 'not stalled'})")
+        for c in r["logit_checks"]:
+            print(f"{tag} {policy}: engine (hit {c['hit']} tokens) vs plain "
+                  f"full forward, {c['dtype']}, step {c['step']}: max "
+                  f"|dlogit| {c['max_abs']:.4f}, RMS ratio "
+                  f"{c['rel_rms']:.4f}, argmax equal {c['argmax_equal']} "
+                  f"(tolerance {c['tol'][0]}, {c['tol'][1]})")
+
+
+def serve_cli(timeout=600):
+    """Phase 20c: ``python -m repro_torch.launch.serve --arch qwen3_4b
+    --policy lmetric`` (the smoke config, as the reference launcher
+    serves) in a subprocess on the card: exit 0 and a row of 40 finished
+    requests; with ``--dry-run`` a non-zero exit naming the
+    ``NotImplementedError``.  Returns (row, wall s, the dry run's last
+    line)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           SERVE_ARCH, "--policy", "lmetric"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines or \
+            not lines[-1].startswith("lmetric") or \
+            f"n={SERVE_REQUESTS:>6}" not in lines[-1]:
+        raise AssertionError(f"{' '.join(cmd[1:])}: exit {r.returncode}, "
+                             f"stdout {r.stdout[-2000:]!r}, stderr "
+                             f"{r.stderr[-2000:]!r}")
+    d = subprocess.run(cmd + ["--dry-run"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    last = (d.stderr.strip().splitlines() or [""])[-1]
+    if d.returncode == 0 or not last.startswith("NotImplementedError"):
+        raise AssertionError(f"--dry-run exited {d.returncode}: {last!r}")
+    return lines[-1], wall, last
+
+
+def layout_check():
+    """Phase 20d: for every assigned arch x input shape at full size
+    (``resolve_arch_for_shape``; ``input_specs`` and
+    ``Model.abstract_params`` on ``meta``, nothing allocated),
+    ``model_flops`` and ``analytic_flops``; every parameter spec of
+    ``param_shardings`` and every decode-cache spec of
+    ``cache_shardings`` on the 16 x 16 and 2 x 16 x 16 production meshes
+    divides its dims.  Returns the rows and the count of specs held."""
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.launch import mesh as lm, sharding as ls
+    from repro_torch.launch.shapes import (INPUT_SHAPES, analytic_flops,
+                                           input_specs, model_flops,
+                                           resolve_arch_for_shape)
+    from repro_torch.models import Model
+    rows, held = [], 0
+
+    def divides(tree, shard, mesh):
+        n = 0
+        for leaf, s in zip(_leaves(tree), _leaves(shard)):
+            for dim, ax in zip(leaf.shape, s.spec):
+                axes = () if ax is None else (ax,) if isinstance(ax, str) \
+                    else ax
+                size = int(np.prod([mesh.shape[a] for a in axes]))
+                if dim % size:
+                    raise AssertionError(f"spec {s.spec} does not divide "
+                                         f"{tuple(leaf.shape)}")
+            n += 1
+        return n
+
+    for arch in ASSIGNED_ARCHS:
+        base = get_config(arch)
+        for shape in INPUT_SHAPES:
+            cfg, skip = resolve_arch_for_shape(base, shape)
+            if skip:
+                rows.append((arch, shape, None, None, skip))
+                continue
+            rows.append((arch, shape, model_flops(cfg, shape),
+                         analytic_flops(cfg, shape), cfg.name))
+            specs = input_specs(cfg, shape)
+            if any(t.device.type != "meta" for t in _leaves(
+                    {k: v for k, v in specs.items() if k != "kind"})):
+                raise AssertionError(f"{arch} {shape}: a spec was allocated")
+            for multi in (False, True):
+                mesh = lm.make_production_mesh(multi_pod=multi)
+                axes = lm.fsdp_axes(multi)
+                if specs["kind"] == "decode":
+                    held += divides(specs["cache"], ls.cache_shardings(
+                        specs["cache"], mesh, axes), mesh)
+        params = Model(base, device="meta").abstract_params()
+        for multi in (False, True):
+            mesh = lm.make_production_mesh(multi_pod=multi)
+            held += divides(params, ls.param_shardings(
+                params, mesh, lm.fsdp_axes(multi)), mesh)
+    return rows, held
+
+
+def report_layout(gpu, rows, held):
+    """Print phase 20d's FLOP table."""
+    for arch, shape, mf, af, note in rows:
+        if mf is None:
+            print(f"[{gpu}] layout {arch} {shape}: skipped ({note})")
+            continue
+        print(f"[{gpu}] layout {arch} {shape} ({note}): model_flops "
+              f"{mf:.6g}, analytic_flops {af:.6g} (FLOP per step)")
+    print(f"[{gpu}] layout: {held} parameter and cache specs on the 16 x 16 "
+          f"and 2 x 16 x 16 meshes divide their dims (10 assigned archs at "
+          f"full size on meta)")
+
+
+def launcher_phase(torch, gpu, t_start):
+    """Phase 20, printed as it runs; returns the kernels' worst errors and
+    ``serve_path``'s numbers.  Its request count is cut past
+    ``SERVE_CUT_AFTER_S`` after ``t_start``."""
+    t0 = time.perf_counter()
+    s_err, report = check_serve_attention(torch)
+    for line in report:
+        print(f"[{gpu}] kernel vs plain: {line}")
+    print(f"[{gpu}] attention kernels at the launcher's shapes vs plain "
+          f"(tolerance {ATTN_TOL}): ok, {time.perf_counter() - t0:.1f} s")
+    n_serve = SERVE_REQUESTS
+    if time.perf_counter() - t_start > SERVE_CUT_AFTER_S:
+        n_serve = SERVE_CUT_REQUESTS
+        print(f"launcher: cut from {SERVE_REQUESTS} to {n_serve} requests a "
+              f"policy to stay within the time limit (width and depth "
+              f"unchanged)")
+    t0 = time.perf_counter()
+    sp = serve_path(torch, n_req=n_serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report_serve(gpu, sp)
+    print(f"[{gpu}] launcher {SERVE_ARCH}: {time.perf_counter() - t0:.1f} s")
+    row, cli_wall, dry = serve_cli()
+    print(f"[{gpu}] python -m repro_torch.launch.serve --arch {SERVE_ARCH} "
+          f"--policy lmetric (the smoke config, as the reference serves): "
+          f"exit 0 in {cli_wall:.1f} s: {row}")
+    print(f"[{gpu}] ... --dry-run: non-zero exit, {dry}")
+    t0 = time.perf_counter()
+    rows, held = layout_check()
+    report_layout(gpu, rows, held)
+    print(f"[{gpu}] layout: {time.perf_counter() - t0:.1f} s")
+    return s_err, sp
 
 
 def main() -> int:
@@ -4413,6 +4826,11 @@ def main() -> int:
     cut = train_cut_check(torch)
     report_train(gpu, tp, cut)
     print(f"[{gpu}] training: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 20: the serving launcher and the layout modules --------
+    s_err, sp = launcher_phase(torch, gpu, t_start)
+    for name, err in s_err.items():
+        attn_err[name] = max(attn_err[name], err)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
@@ -4440,7 +4858,8 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": sum(sv["launches"][name] for sv in served.values())
-            + wp["launches"].get(name, 0),
+            + wp["launches"].get(name, 0)
+            + sum(r["launches"][name] for r in sp["runs"].values()),
             "max_abs_err": {**attn_err, **rec_err}[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

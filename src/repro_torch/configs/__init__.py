@@ -19,10 +19,14 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
+#: in the reference's order: the ten assigned archs, then the paper's own
+#: testbed models
 ARCH_IDS = ("xlstm_350m", "paligemma_3b", "yi_6b", "recurrentgemma_9b",
-            "deepseek_67b", "arctic_480b", "granite_moe_3b_a800m",
-            "minicpm_2b", "qwen3_4b", "qwen2_7b", "qwen3_30b_moe",
-            "whisper_medium")
+            "whisper_medium", "deepseek_67b", "arctic_480b",
+            "granite_moe_3b_a800m", "minicpm_2b", "qwen3_4b", "qwen2_7b",
+            "qwen3_30b_moe")
+
+ASSIGNED_ARCHS = ARCH_IDS[:10]
 
 
 def _norm(name: str) -> str:

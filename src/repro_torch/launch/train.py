@@ -9,13 +9,15 @@ published one; ``--accum`` micro-batches per step (the reference's
 launcher parses it and trains unsplit).  Training runs on ``--device`` (default ``cuda``, which
 needs a card; ``cpu`` runs the same code on the CPU).  ``--dry-run`` and
 ``--multi-pod`` are the reference's TPU-mesh tools (lower the production
-step on a device mesh): they are not ported (ROADMAP Queue A, the
-``launch/`` item) and raise.
+step on a device mesh): they are not ported yet and raise
+(``DRY_RUN_NOT_PORTED``).
 """
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
+
+from . import DRY_RUN_NOT_PORTED
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -38,10 +40,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     if args.dry_run or args.multi_pod:
-        raise NotImplementedError(
-            "--dry-run and --multi-pod lower the production step on a TPU "
-            "mesh; not ported to repro_torch (ROADMAP Queue A, item 8: "
-            "launch/ and models/sharding_hooks.py)")
+        raise NotImplementedError(DRY_RUN_NOT_PORTED)
 
     from ..configs import get_config
     from ..data.pipeline import DataConfig, DataIterator

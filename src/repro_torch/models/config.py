@@ -109,6 +109,15 @@ class ModelConfig:
     def has_kv_blocks(self) -> bool:
         return any(k in KV_BLOCKS for k in self.block_pattern)
 
+    @property
+    def full_attention(self) -> bool:
+        """True if any block is full (unwindowed) attention -> quadratic."""
+        return any(k in ("attn", "xattn") for k in self.block_pattern)
+
+    def supports_long_decode(self) -> bool:
+        """sub-quadratic decode: no full-attention block, or enc-dec skip."""
+        return not self.full_attention
+
     # ------------------------------------------------------------------
     def repeating_unit(self) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
         """Return (unit, n_units, remainder) with pattern == unit*n + rem."""

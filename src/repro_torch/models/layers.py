@@ -6,7 +6,10 @@ Parameters are plain nested dicts of tensors, in the reference's layouts
 reference's parameters carry over as copies (``models.convert``).
 Initialisers draw from an explicit ``torch.Generator`` with the
 reference's distributions; the numbers differ from ``jax.random``'s, so
-parity tests convert the reference's parameters instead.
+parity tests convert the reference's parameters instead.  ``MetaDraws``
+stands in for the generator when a tree is built on the ``meta`` device
+(``Model.abstract_params``): shapes and dtypes, nothing drawn or
+allocated.
 """
 from __future__ import annotations
 
@@ -23,10 +26,21 @@ Params = Dict[str, torch.Tensor]
 # init helpers
 # ---------------------------------------------------------------------------
 
+class MetaDraws:
+    """The generator of a parameter tree built on the ``meta`` device."""
+    device = torch.device("meta")
+
+
+def source(gen):
+    """The ``generator=`` argument of a draw from ``gen``: ``None`` for
+    ``MetaDraws``, whose draws on ``meta`` are shapes only."""
+    return None if isinstance(gen, MetaDraws) else gen
+
+
 def _dense_init(gen: torch.Generator, shape, dtype, scale=None):
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+    w = torch.randn(shape, generator=source(gen), dtype=torch.float32,
                     device=gen.device)
     return (w.mul_(scale)).to(dtype)
 

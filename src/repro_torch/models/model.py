@@ -74,9 +74,9 @@ from ..kernels.prefill_attention import flash_prefill
 from . import attention as attn
 from . import recurrent as rec
 from .config import ModelConfig
-from .layers import (embed_apply, ffn_apply, init_embed, init_ffn,
-                     init_linear, init_moe, init_norm, linear, moe_apply,
-                     norm_apply)
+from .layers import (MetaDraws, embed_apply, ffn_apply, init_embed,
+                     init_ffn, init_linear, init_moe, init_norm, linear,
+                     moe_apply, norm_apply, source)
 
 #: stub SigLIP patch-embedding width (PaliGemma), as in the reference
 VISION_DIM = 1152
@@ -96,8 +96,11 @@ def _ffn_act(p, cfg: ModelConfig) -> str:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device="cuda"):
+        """``device="meta"`` builds shapes only (``abstract_params``,
+        ``init_cache``); nothing on it runs a forward."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = torch.device("meta") if str(device) == "meta" \
+            else resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self._tables: Dict[tuple, torch.Tensor] = {}
 
@@ -149,9 +152,14 @@ class Model:
         if cfg.is_encdec:
             params["encoder"] = self._init_encoder(generator)
             params["dec_pos"] = (torch.randn(
-                (cfg.max_position, cfg.d_model), generator=generator,
+                (cfg.max_position, cfg.d_model), generator=source(generator),
                 device=dev) * 0.01).to(dt)
         return params
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes,
+        nothing allocated (the reference's ``eval_shape`` of ``init``)."""
+        return Model(self.cfg, device="meta").init(MetaDraws())
 
     def _init_encoder(self, gen) -> Dict[str, Any]:
         """Whisper's encoder layers (pre-LayerNorm, MHA of ``n_heads``

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from ..kernels.mlstm_cell import mlstm_chunk, mlstm_chunk_plain
 from ..kernels.rglru_scan import rglru_scan, rglru_scan_plain
 from .config import ModelConfig
-from .layers import _dense_init, _gelu, init_linear, linear
+from .layers import _dense_init, _gelu, init_linear, linear, source
 
 MLSTM_CHUNK = 256
 RGLRU_C = 8.0  # Griffin's fixed recurrence-gate exponent
@@ -51,7 +51,7 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig):
     dtype = getattr(torch, cfg.dtype)
     dev = gen.device
     # Λ init so that a = sigmoid(Λ)^c is in (0.9, 0.999) — griffin-style
-    u = torch.rand((dr,), generator=gen, dtype=torch.float32,
+    u = torch.rand((dr,), generator=source(gen), dtype=torch.float32,
                    device=dev) * (0.999 - 0.9) + 0.9
     root = u ** (1.0 / RGLRU_C)
     lam = torch.log(root / (1 - root))

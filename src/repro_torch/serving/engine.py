@@ -22,7 +22,11 @@ that reference behaviour (ROADMAP Queue C.9).
 Slot surgery is done in place over every leaf of the cache: admitting a
 request zeroes its slot (``zero_``) and a hit copies the fragment into it
 (``copy_``); the model's cached entry points write the cache in place
-too.  The reference rebuilds immutable cache pytrees instead.
+too.  The reference rebuilds immutable cache pytrees instead.  A decode
+step while the head of the queue is stalled part-way through its
+prefill (admission waits for a free slot, as in the reference) puts
+that request's slot back afterwards; the reference lets the step write
+it (ROADMAP Queue C.17).
 
 ``EngineCluster`` wires N engines to the port's ``core.Router`` under the
 reference's virtual-time event loop, whose step durations are the
@@ -253,8 +257,13 @@ class InstanceEngine:
         elif self.running:
             events["kind"] = "decode"
             events["decode_bs"] = len(self.running)
+            held = self._hold_stalled()
             nxt = self._decode(self._last_tokens, self._pos).argmax(
                 dim=-1).cpu().numpy()
+            if held is not None:
+                b, saved = held
+                for t, x in zip(self._leaves(), saved):
+                    t[b].copy_(x)
             for slot, seq in list(self.running.items()):
                 tok = int(nxt[slot])
                 seq.out_tokens.append(tok)
@@ -266,6 +275,20 @@ class InstanceEngine:
                     self._finish(seq, events)
         events["wall"] = time.perf_counter() - t0
         return events
+
+    def _hold_stalled(self):
+        """(slot, copies of its leaves) of a head-of-queue request stalled
+        part-way through its prefill (it holds the last slot, so admission
+        waits for a free one while the running slots decode), else None.
+        The decode step runs every slot and writes each at its position,
+        which for the stalled slot is its previous occupant's and may lie
+        among the rows already prefilled; the step then puts the copies
+        back.  The reference does not, so there its stalled request and
+        the fragment stored from it are corrupted (ROADMAP Queue C.17)."""
+        if not self.waiting or self.waiting[0].slot < 0:
+            return None
+        b = self.waiting[0].slot
+        return b, [t[b].clone() for t in self._leaves()]
 
     def _finish(self, seq: _Seq, events):
         events["finished"].append(seq)

@@ -54,7 +54,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "cluster.closed_loop", "configs.qwen3_30b_moe",
                 "configs.whisper_medium", "data.pipeline",
                 "training.optim", "training.train_loop",
-                "training.checkpoint", "launch.train"):
+                "training.checkpoint", "launch.train", "launch.serve",
+                "launch.shapes", "launch.mesh", "launch.sharding",
+                "models.sharding_hooks"):
         assert f"repro_torch.{mod}" in names, mod
 
 
