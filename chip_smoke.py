@@ -205,11 +205,13 @@ Phases (each raises on failure, so any failure exits nonzero):
    parameters, f32 moments, ``remat=True``, batch 4 x 512 tokens of the
    synthetic ``DataIterator`` cycling over 8 documents
    (``TRAIN_DOCS_PER_ROW``), 20 steps of ``make_train_step``: every loss
-   finite, the mean of the last 5 below that of the first 5; a checkpoint
-   saved after step 10 (``save_checkpoint``, the reference's npz + JSON
-   format, ~48 GB, under ``build/``, removed after) and restored into
-   fresh tensors reproduces step 11's loss and parameters exactly; every
-   kernel's launch counter stays 0 throughout; then a 2-layer depth cut
+   finite, the mean of the last 5 below that of the first 5; then the
+   same 20 steps on a 2-layer depth cut at full width
+   (``TRAIN_CKPT_LAYERS``), with a checkpoint saved after step 10
+   (``save_checkpoint``, the reference's npz + JSON format, ~6 GB, under
+   ``build/``, removed after) and restored into fresh tensors, which
+   reproduces step 11's loss and parameters exactly; every kernel's
+   launch counter stays 0 throughout; then a 2-layer depth cut
    at full width in f32 (``train_cut_check``): one step on the card
    against the same step on the CPU, and one ``accum_steps=2`` step
    against the unsplit one; prints the memory reckoning, losses, step
@@ -233,11 +235,28 @@ Phases (each raises on failure, so any failure exits nonzero):
    TTFT / TPOT means, step walls and peak memory; then ``python -m
    repro_torch.launch.serve --arch qwen3_4b --policy lmetric`` (the smoke
    config, as the reference serves) in a subprocess must exit 0 with a
-   row of 40 finished requests, and ``--dry-run`` must exit non-zero with
-   the ``NotImplementedError``; then ``model_flops`` and
+   row of 40 finished requests; then ``model_flops`` and
    ``analytic_flops`` of every assigned arch x input shape at full size on
    ``meta``, and every parameter and decode-cache spec on the 16 x 16 and
-   2 x 16 x 16 meshes must divide its dims.
+   2 x 16 x 16 meshes must divide its dims;
+21. the dry run and the card check — ``launch.dryrun``'s analytic sweep
+   of the 10 assigned archs x 4 input shapes x the 16 x 16 and 2 x 16 x
+   16 meshes: 80 records, all ``ok`` but Whisper x long_500k (the
+   reference's documented skip), each printed with its per-card peak
+   bytes, its three roofline terms at H100 rates and the dominant one;
+   then ``card_check`` of Qwen3-4B at full width and depth on the card:
+   a decode step of batch 8 over a 32768-row cache (46.7 GB of
+   arguments) and a prefill of 1 x 32768 tokens, each with its arguments
+   placed for real (their bytes equal the reckoned ``argument_bytes``,
+   the allocator's growth that to its per-tensor rounding), timed (wall,
+   CUDA events, the device time of a profiled step) beside its roofline
+   terms; 36 ``paged_attention`` launches a decode step (counted from
+   zero, and in the trace), none in the plain prefill; then
+   ``paged_attention`` against its plain version at that decode shape
+   (contexts up to 32768, f32 and bf16 within ``ATTN_TOL``); then
+   ``python -m repro_torch.launch.serve --dry-run`` and ``python -m
+   repro_torch.launch.train --arch qwen3_4b --dry-run`` in subprocesses
+   must exit 0, each with its record under ``results/dryrun_torch``.
 
 Each model is freed before the next is loaded.  If the run nears its
 time limit, the Qwen2-7B serving path's depth is cut first (printed),
@@ -1864,26 +1883,17 @@ def report_serving(gpu, sv):
               f"{c['tol'][1]})")
 
 
-#: the port's kernels by the names of their CUDA functions, as the
-#: profiler reports them (the f32 mlstm_cell runs four)
-PORT_KERNELS = {"route_score": ("route_wave", "route_warp", "route_cluster"),
-                "prefill_attention": ("prefill_kernel", "prefill_wgmma"),
-                "paged_attention": ("paged_kernel",),
-                "rglru_scan": ("rglru_kernel",),
-                "mlstm_cell": ("cell_wgmma", "gates_kernel", "scores_kernel",
-                               "out_kernel", "state_kernel")}
-
-
 def port_kernel_times(us, count):
     """{port kernel: (device us, device launches)} summed over the
-    profiler's device events ``us`` and ``count`` by name."""
-    import re
+    profiler's device events ``us`` and ``count`` by name (each name's
+    category by ``launch.hlo.category``)."""
+    from repro_torch.launch.hlo import PORT_KERNELS, category
     out = {}
     for key, t in us.items():
-        for name, fns in PORT_KERNELS.items():
-            if any(re.search(rf"(^|[\s:]){f}[<(]", key) for f in fns):
-                tot, c = out.get(name, (0.0, 0))
-                out[name] = (tot + t, c + count[key])
+        name = category(key)
+        if name in PORT_KERNELS:
+            tot, c = out.get(name, (0.0, 0))
+            out[name] = (tot + t, c + count[key])
     return out
 
 
@@ -1926,9 +1936,10 @@ def profile_steps(torch, gpu, arch):
     and without the profiler, the device time summed over kernels (busy
     share = device time / wall without the profiler), the kernels that
     take the most device time and each port kernel's device time per step
-    (``PORT_KERNELS``), however small.  Then the model's rounding noise floor
-    (``embedding_sensitivity``) over a 2748-token prompt in bf16, and for
-    xLSTM-350M, whose logit check runs in f32, in f32 too."""
+    (``launch.hlo.PORT_KERNELS``), however small.  Then the model's
+    rounding noise floor (``embedding_sensitivity``) over a 2748-token
+    prompt in bf16, and for xLSTM-350M, whose logit check runs in f32, in
+    f32 too."""
     import dataclasses
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3926,6 +3937,10 @@ TRAIN_DOCS_PER_ROW = 2
 #: update's sign; tests/test_torch_training.py's ``_hold_step``)
 TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 2, 64
 TRAIN_REL = 1e-4
+#: the checkpoint round trip runs on this depth cut at full width (the
+#: full-depth ~48 GB state took 64.3 s to save and 113.5 s to restore,
+#: PERF.md; the cut's is ~6 GB, most of it the embedding's)
+TRAIN_CKPT_LAYERS = 2
 
 
 def _kernel_launches():
@@ -3975,17 +3990,20 @@ def train_reckoning(cfg, B, S):
 
 
 def train_path(torch, ckpt_dir, n_steps=TRAIN_STEPS, device="cuda",
-               arch=TRAIN_ARCH, B=TRAIN_BATCH, S=TRAIN_SEQ, lr=TRAIN_LR):
-    """Phase 19: ``arch`` at full width and depth in bf16 (f32 moments,
-    ``remat=True``) trained ``n_steps`` steps of ``make_train_step`` on the
+               arch=TRAIN_ARCH, B=TRAIN_BATCH, S=TRAIN_SEQ, lr=TRAIN_LR,
+               n_layers=None):
+    """Phase 19: ``arch`` at full width in bf16 (f32 moments,
+    ``remat=True``; its first ``n_layers`` layers if given, else its full
+    depth) trained ``n_steps`` steps of ``make_train_step`` on the
     synthetic ``DataIterator``; every loss finite and the mean of the last
-    5 below that of the first 5; a checkpoint saved after step
-    ``n_steps // 2`` (``save_checkpoint``, the reference's format) and
-    restored into fresh tensors (everything else freed first) reproduces
-    the next step's loss and parameters exactly.  Every kernel's launch
-    counter stays 0 throughout (training runs no kernel).
+    5 below that of the first 5.  With a ``ckpt_dir``, a checkpoint saved
+    after step ``n_steps // 2`` (``save_checkpoint``, the reference's
+    format) and restored into fresh tensors (everything else freed first)
+    reproduces the next step's loss and parameters exactly.  Every
+    kernel's launch counter stays 0 throughout (training runs no kernel).
     ``arch="qwen3_4b-smoke", device="cpu"`` rehearses it (at a smoke
     model's width the loss needs a larger ``lr`` to fall in 20 steps)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, DataIterator
     from repro_torch.models import Model
@@ -3994,6 +4012,9 @@ def train_path(torch, ckpt_dir, n_steps=TRAIN_STEPS, device="cuda",
                                             adamw_init, leaves, tree_map)
     from repro_torch.training.train_loop import make_train_step
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                                  block_pattern=cfg.block_pattern[:n_layers])
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     model = Model(cfg, device=device)
@@ -4026,12 +4047,12 @@ def train_path(torch, ckpt_dir, n_steps=TRAIN_STEPS, device="cuda",
         gnorms.append(float(m["grad_norm"]))
         if not np.isfinite(loss):
             raise AssertionError(f"step {step}: loss {loss}")
-        if step == save_at:
+        if ckpt_dir is not None and step == save_at:
             t0 = time.perf_counter()
             ck.save_checkpoint(ckpt_dir, step, params, opt,
                                extra={"data": data.state()})
             t_save = time.perf_counter() - t0
-        if step == save_at + 1:
+        if ckpt_dir is not None and step == save_at + 1:
             resume = {"batch": batch, "loss": loss, "params": tree_map(
                 lambda t: t.to("cpu", copy=True), params)}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
@@ -4040,6 +4061,18 @@ def train_path(torch, ckpt_dir, n_steps=TRAIN_STEPS, device="cuda",
     if not last < first:
         raise AssertionError(f"the loss did not fall: first 5 mean {first}, "
                              f"last 5 mean {last}")
+    out = {"cfg": cfg, "B": B, "S": S, "lr": lr, "steps": n_steps,
+           "losses": losses, "gnorms": gnorms, "walls": walls,
+           "init_s": t_init, "mem_state": mem_state, "peak": peak,
+           "launches": launches, "reckoning": train_reckoning(cfg, B, S)}
+    if ckpt_dir is None:
+        if any(launches.values()):
+            raise AssertionError(f"training launched kernels: {launches}")
+        del params, opt, m
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        return out
     # resume: free everything, restore into fresh tensors, take the step
     def meta(t):
         return torch.empty(t.shape, dtype=t.dtype, device="meta")
@@ -4077,13 +4110,9 @@ def train_path(torch, ckpt_dir, n_steps=TRAIN_STEPS, device="cuda",
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return {"cfg": cfg, "B": B, "S": S, "lr": lr, "steps": n_steps,
-            "losses": losses,
-            "gnorms": gnorms, "walls": walls, "init_s": t_init,
-            "mem_state": mem_state, "peak": peak, "launches": launches,
-            "save_at": save_at, "save_s": t_save, "restore_s": t_restore,
-            "ckpt_bytes": ck_bytes, "resumed_loss": loss2,
-            "reckoning": train_reckoning(cfg, B, S)}
+    return {**out, "save_at": save_at, "save_s": t_save,
+            "restore_s": t_restore, "ckpt_bytes": ck_bytes,
+            "resumed_loss": loss2}
 
 
 def train_cut_check(torch, device="cuda", arch=TRAIN_ARCH):
@@ -4141,8 +4170,10 @@ def train_cut_check(torch, device="cuda", arch=TRAIN_ARCH):
     return out
 
 
-def report_train(gpu, tp, cut):
-    """Print phase 19's numbers."""
+def report_train(gpu, tp, cut, ck=None):
+    """Print phase 19's numbers: the run ``tp``, the depth cut's card vs
+    CPU check ``cut`` and the checkpoint round trip of ``ck`` (or of
+    ``tp``, if it made one)."""
     cfg, r = tp["cfg"], tp["reckoning"]
     tag = f"[{gpu}] training {cfg.name}:"
     tokens = tp["B"] * tp["S"]
@@ -4174,11 +4205,14 @@ def report_train(gpu, tp, cut):
           f"{mf:.6g} FLOP a step (remat's second forward not counted): "
           f"{mf / med / 1e12:.1f} TFLOP/s, {mf / med / BF16_OPS_PER_S:.2%} "
           f"of the {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak")
-    print(f"{tag} checkpoint after step {tp['save_at']}: "
-          f"{tp['ckpt_bytes'] / 1e9:.2f} GB on disk, saved in "
-          f"{tp['save_s']:.1f} s, restored into fresh tensors in "
-          f"{tp['restore_s']:.1f} s; step {tp['save_at'] + 1} from it: loss "
-          f"{tp['resumed_loss']} and every parameter equal to the "
+    ck = ck or tp
+    print(f"{tag} checkpoint of a {ck['cfg'].n_layers}-layer run at full "
+          f"width ({ck['steps']} steps, losses {ck['losses'][0]:.4f} -> "
+          f"{ck['losses'][-1]:.4f}) after step {ck['save_at']}: "
+          f"{ck['ckpt_bytes'] / 1e9:.2f} GB on disk, saved in "
+          f"{ck['save_s']:.1f} s, restored into fresh tensors in "
+          f"{ck['restore_s']:.1f} s; step {ck['save_at'] + 1} from it: loss "
+          f"{ck['resumed_loss']} and every parameter equal to the "
           f"uninterrupted run's")
     for what, v in cut.items():
         if what in ("walls", "cfg"):
@@ -4441,9 +4475,7 @@ def serve_cli(timeout=600):
     """Phase 20c: ``python -m repro_torch.launch.serve --arch qwen3_4b
     --policy lmetric`` (the smoke config, as the reference launcher
     serves) in a subprocess on the card: exit 0 and a row of 40 finished
-    requests; with ``--dry-run`` a non-zero exit naming the
-    ``NotImplementedError``.  Returns (row, wall s, the dry run's last
-    line)."""
+    requests (its ``--dry-run`` is phase 21d's).  Returns (row, wall s)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
            SERVE_ARCH, "--policy", "lmetric"]
@@ -4458,12 +4490,7 @@ def serve_cli(timeout=600):
         raise AssertionError(f"{' '.join(cmd[1:])}: exit {r.returncode}, "
                              f"stdout {r.stdout[-2000:]!r}, stderr "
                              f"{r.stderr[-2000:]!r}")
-    d = subprocess.run(cmd + ["--dry-run"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=timeout)
-    last = (d.stderr.strip().splitlines() or [""])[-1]
-    if d.returncode == 0 or not last.startswith("NotImplementedError"):
-        raise AssertionError(f"--dry-run exited {d.returncode}: {last!r}")
-    return lines[-1], wall, last
+    return lines[-1], wall
 
 
 def layout_check():
@@ -4557,16 +4584,261 @@ def launcher_phase(torch, gpu, t_start):
     torch.cuda.empty_cache()
     report_serve(gpu, sp)
     print(f"[{gpu}] launcher {SERVE_ARCH}: {time.perf_counter() - t0:.1f} s")
-    row, cli_wall, dry = serve_cli()
+    row, cli_wall = serve_cli()
     print(f"[{gpu}] python -m repro_torch.launch.serve --arch {SERVE_ARCH} "
           f"--policy lmetric (the smoke config, as the reference serves): "
           f"exit 0 in {cli_wall:.1f} s: {row}")
-    print(f"[{gpu}] ... --dry-run: non-zero exit, {dry}")
     t0 = time.perf_counter()
     rows, held = layout_check()
     report_layout(gpu, rows, held)
     print(f"[{gpu}] layout: {time.perf_counter() - t0:.1f} s")
     return s_err, sp
+
+
+# ---------------------------------------------------------------------------
+# the dry run, the roofline and the card check (phase 21)
+# ---------------------------------------------------------------------------
+#: phase 21b: the launchers' arch at full width and depth on one card, a
+#: decode step of DRYRUN_DECODE (batch, cache rows: decode_32k's sequence,
+#: its batch of 128 cut to fit 80 GB) and a prefill of DRYRUN_PREFILL
+#: (prefill_32k's sequence, batch 1); (warm-up, timed) runs of each, the
+#: prefill (~37 s a step) timed in its profiled step
+DRYRUN_ARCH = "qwen3_4b"
+DRYRUN_DECODE, DRYRUN_PREFILL = (8, 32768), (1, 32768)
+DRYRUN_DECODE_RUNS, DRYRUN_PREFILL_RUNS = (2, 5), (1, 0)
+
+
+def dryrun_sweep():
+    """Phase 21a: ``launch.dryrun.run_one`` (not saved) for the 10
+    assigned archs x 4 input shapes x the 16 x 16 and 2 x 16 x 16 meshes:
+    80 records, every one ``ok``, Whisper x long_500k the reference's
+    documented skip and no other.  Returns the records."""
+    from repro_torch.configs import ASSIGNED_ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import INPUT_SHAPES
+    recs = [dryrun.run_one(a, s, multi_pod=m, save=False)
+            for m in (False, True) for a in ASSIGNED_ARCHS
+            for s in INPUT_SHAPES]
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in recs
+           if not r["ok"]]
+    skips = [(r["arch"], r["shape"]) for r in recs if r.get("skipped")]
+    if len(recs) != 80 or bad or \
+            skips != [("whisper_medium", "long_500k")] * 2:
+        raise AssertionError(f"dry-run sweep: {len(recs)} records, failed "
+                             f"{bad}, skipped {skips}")
+    return recs
+
+
+def report_sweep(gpu, recs):
+    """Print phase 21a's records: per-card peak bytes, the three roofline
+    terms and the dominant one."""
+    for r in recs:
+        key = f"{r['arch']} {r['shape']} {r['mesh']}"
+        if r.get("skipped"):
+            print(f"[{gpu}] dry run {key}: skipped ({r['skipped']})")
+            continue
+        t = r["roofline"]
+        print(f"[{gpu}] dry run {key}: peak {r['memory']['peak_bytes']} B "
+              f"a card, t_compute {t['t_compute'] * 1e3:.4g} ms, t_memory "
+              f"{t['t_memory'] * 1e3:.4g} ms, t_collective "
+              f"{t['t_collective'] * 1e3:.4g} ms -> {r['dominant']}")
+
+
+def dryrun_card(torch):
+    """Phase 21b: ``launch.dryrun.card_check`` of ``DRYRUN_ARCH`` at full
+    width and depth on the card: a decode step over DRYRUN_DECODE (every
+    counter zeroed just before, read just after: one ``paged_attention``
+    launch per attention layer and run, and as many in the profiled
+    step's trace), then, the decode state freed, a prefill of
+    DRYRUN_PREFILL (plain attention: no kernel launches).  Returns
+    (decode record, prefill record, decode launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import card_check
+    cfg = get_config(DRYRUN_ARCH)
+    n_attn = sum(k in ("attn", "swa", "xattn") for k in cfg.block_pattern)
+    B, S = DRYRUN_DECODE
+    warm, reps = DRYRUN_DECODE_RUNS
+    _zero_launches()
+    dec = card_check(cfg, "decode", S, B, warmup=warm, reps=reps)
+    launches = _kernel_launches()
+    runs = warm + reps + 1
+    traced = dec["measured"]["trace"]["launches"]["paged_attention"]
+    if launches["paged_attention"] != n_attn * runs or traced != n_attn or \
+            sum(launches.values()) != launches["paged_attention"]:
+        raise AssertionError(f"decode card check: launches {launches} over "
+                             f"{runs} steps, {traced} traced in one; "
+                             f"expected {n_attn} paged_attention a step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S = DRYRUN_PREFILL
+    warm, reps = DRYRUN_PREFILL_RUNS
+    _zero_launches()
+    pre = card_check(cfg, "prefill", S, B, warmup=warm, reps=reps)
+    if any(_kernel_launches().values()):
+        raise AssertionError(f"the plain prefill launched kernels: "
+                             f"{_kernel_launches()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dec, pre, launches["paged_attention"]
+
+
+def report_card(gpu, rec):
+    """Print one card check (phase 21b)."""
+    tag = f"[{gpu}] card check {rec['arch']} {rec['shape']}"
+    b, mem, p = rec["bytes"], rec["memory"], rec["placed"]
+    t, m, tr = rec["roofline"], rec["measured"], rec["measured"]["trace"]
+    print(f"{tag}: reckoned per card: params {b['params']} B + cache "
+          f"{b['cache']} + inputs {b['inputs']} = argument_bytes "
+          f"{mem['argument_bytes']} ({mem['argument_bytes'] / 1e9:.2f} GB), "
+          f"output_bytes {mem['output_bytes']}, alias_bytes "
+          f"{mem['alias_bytes']}")
+    print(f"{tag}: placed {p['tensors']} tensors holding {p['bytes']} B == "
+          f"argument_bytes; allocator grew {p['allocator_growth']} B against "
+          f"{p['rounded']} B rounded up to 512 B each (+ "
+          f"{p['allocator_growth'] - p['rounded']} B, under 1 MiB for each "
+          f"of the {p['large_tensors']} tensors over 1 MiB)")
+    print(f"{tag}: roofline t_compute {t['t_compute'] * 1e3:.4f} ms "
+          f"({rec['analytic_flops']:.6g} FLOP / 989e12), t_memory "
+          f"{t['t_memory'] * 1e3:.4f} ms ({rec['memory_traffic_bytes']} B / "
+          f"3.35e12), t_collective {t['t_collective'] * 1e3:.4f} ms -> "
+          f"{rec['dominant']}")
+    runs = (f"means of {m['reps']} after {m['warmup']} warm-up"
+            if m["reps"] else f"the profiled step, after {m['warmup']} "
+            f"warm-up")
+    print(f"{tag}: wall {m['wall_ms']:.3f} ms a step, CUDA events "
+          f"{m['event_ms']:.3f} ms a step ({runs}), device "
+          f"{m['device_ms']:.3f} ms in "
+          f"the profiled step ({tr['device_ops']} device ops, busy "
+          f"{tr['busy_share']:.1%} of its traced wall); roofline share "
+          f"{rec['roofline_share']['device']:.2%} of the device time, "
+          f"{rec['roofline_share']['wall']:.2%} of the wall; temp "
+          f"{mem['temp_bytes']} B above the arguments, peak "
+          f"{mem['peak_bytes'] / 2 ** 30:.2f} GiB")
+    for cat, v in tr["categories"].items():
+        if v["count"]:
+            print(f"{tag}:   {cat}: {v['us'] / 1e3:.3f} ms over {v['count']}"
+                  f" device ops")
+
+
+def check_long_decode(torch):
+    """Phase 21c: ``paged_attention`` against its plain version at the
+    decode card check's shape: one layer's (8, 32768, 8, 128) cache of
+    seeded K/V in 2048 pages of 16 a row, 32 q heads over 8 (G = 4), hd
+    128, contexts all 32768 and ragged ones, f32 and bf16 within
+    ``ATTN_TOL`` -- 8 x the engines' longest (max_len 4096)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.attention import decode_tables
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 21)
+    B, S = DRYRUN_DECODE
+    H, KV, hd = Q4_H, Q4_KV, Q4_HD
+
+    def rand(shape, dtype, scale=0.5):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(dev, dtype)
+
+    worst, report = 0.0, []
+    bt = decode_tables(B, S, dev)
+    pages = (B * S // KV_BLOCK, KV_BLOCK, KV, hd)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        # the caches drawn on the card (numpy would take seconds a cache)
+        kc, vc = (torch.randn((B, S, KV, hd), generator=gen, device=dev)
+                  .mul_(0.5).to(dtype) for _ in range(2))
+        for ctx in ((S,) * B, (S, 1, 20000, S - 1, 4096, 16, 17, 30001)):
+            q = rand((B, H, hd), dtype, ATTN_Q_SCALE[name])
+            cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+            got = pa.paged_attention(q, kc.view(pages), vc.view(pages), bt,
+                                     cl)
+            want = pa.paged_attention_plain(q, kc.view(pages),
+                                            vc.view(pages), bt, cl)
+            torch.cuda.synchronize()
+            splits, grid = pa.launch_config(q, kc.view(pages), bt)
+            worst = max(worst, _attn_err(
+                got, want, name, f"long decode {name} {H}/{KV} hd {hd} B={B}, "
+                f"{S // KV_BLOCK} pages of {KV_BLOCK} a row, contexts "
+                f"{list(ctx)} (splits {splits}, grid {grid})", report))
+        del kc, vc
+        torch.cuda.empty_cache()
+    return worst, report
+
+
+def dry_run_cli(timeout=300):
+    """Phase 21d: both launchers' ``--dry-run`` as the user runs them, in
+    two subprocesses started together: ``python -m
+    repro_torch.launch.serve --dry-run`` (its default arch at decode_32k)
+    and ``python -m repro_torch.launch.train --arch qwen3_4b --dry-run``
+    (train_4k), each exiting 0 with its ``[dryrun] ... OK`` line and its
+    record under ``results/dryrun_torch`` ``ok``.  Returns [(command,
+    wall s, record path, last line)]."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    jobs = []
+    for mod, args, key in (
+            ("serve", [], f"{SERVE_ARCH}__decode_32k__16x16"),
+            ("train", ["--arch", DRYRUN_ARCH],
+             f"{DRYRUN_ARCH}__train_4k__16x16")):
+        path = os.path.join(ROOT, "results", "dryrun_torch", key + ".json")
+        if os.path.exists(path):
+            os.remove(path)
+        cmd = [sys.executable, "-m", f"repro_torch.launch.{mod}", *args,
+               "--dry-run"]
+        jobs.append((cmd, key, path, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    out = []
+    try:
+        for cmd, key, path, t0, proc in jobs:
+            stdout, stderr = proc.communicate(timeout=timeout)
+            wall = time.perf_counter() - t0
+            last = (stdout.strip().splitlines() or [""])[-1]
+            ok = False
+            if os.path.exists(path):
+                with open(path) as f:
+                    ok = json.load(f).get("ok")
+            if proc.returncode != 0 or not ok or \
+                    not last.startswith(f"[dryrun] {key}: OK"):
+                raise AssertionError(
+                    f"{' '.join(cmd[1:])}: exit {proc.returncode}, record ok "
+                    f"{ok}, stdout {stdout[-2000:]!r}, stderr "
+                    f"{stderr[-2000:]!r}")
+            out.append((" ".join(cmd[1:]), wall,
+                        os.path.relpath(path, ROOT), last))
+    finally:
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def dryrun_phase(torch, gpu):
+    """Phase 21, printed as it runs; returns the long decode's worst
+    error and the decode card check's ``paged_attention`` launches."""
+    t0 = time.perf_counter()
+    recs = dryrun_sweep()
+    report_sweep(gpu, recs)
+    print(f"[{gpu}] dry-run sweep: {len(recs)} records ok (the Whisper x "
+          f"long_500k skips included), {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dec, pre, launches = dryrun_card(torch)
+    for rec in (dec, pre):
+        report_card(gpu, rec)
+    steps = sum(DRYRUN_DECODE_RUNS) + 1
+    print(f"[{gpu}] card check: paged_attention launched {launches} times "
+          f"over the decode check's {steps} steps ({launches // steps} a "
+          f"step), the prefill nothing; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    err, report = check_long_decode(torch)
+    for line in report:
+        print(f"[{gpu}] kernel vs plain: {line}")
+    print(f"[{gpu}] paged_attention at the card check's decode shape vs "
+          f"plain (tolerance {ATTN_TOL}): ok, "
+          f"{time.perf_counter() - t0:.1f} s")
+    for cmd, wall, path, last in dry_run_cli():
+        print(f"[{gpu}] python {cmd}: exit 0 in {wall:.1f} s, {path} ok: "
+              f"{last}")
+    return err, launches
 
 
 def main() -> int:
@@ -4816,21 +5088,29 @@ def main() -> int:
         print(f"training: cut from {TRAIN_STEPS} to {steps} steps to stay "
               f"within the time limit (width and depth unchanged)")
     t0 = time.perf_counter()
+    tp = train_path(torch, None, n_steps=steps)
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     try:
-        tp = train_path(torch, ckpt_dir, n_steps=steps)
+        ck = train_path(torch, ckpt_dir, n_steps=steps,
+                        n_layers=TRAIN_CKPT_LAYERS)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     cut = train_cut_check(torch)
-    report_train(gpu, tp, cut)
+    report_train(gpu, tp, cut, ck)
     print(f"[{gpu}] training: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 20: the serving launcher and the layout modules --------
     s_err, sp = launcher_phase(torch, gpu, t_start)
     for name, err in s_err.items():
         attn_err[name] = max(attn_err[name], err)
+
+    # ---- phase 21: the dry run, the roofline and the card check -------
+    t0 = time.perf_counter()
+    d_err, d_launches = dryrun_phase(torch, gpu)
+    attn_err["paged_attention"] = max(attn_err["paged_attention"], d_err)
+    print(f"[{gpu}] dry run and card check: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     pre_t = ta[f"prefill Sq={CHUNK} off={SYS_PREFIX}"]
@@ -4859,7 +5139,8 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": sum(sv["launches"][name] for sv in served.values())
             + wp["launches"].get(name, 0)
-            + sum(r["launches"][name] for r in sp["runs"].values()),
+            + sum(r["launches"][name] for r in sp["runs"].values())
+            + (d_launches if name == "paged_attention" else 0),
             "max_abs_err": {**attn_err, **rec_err}[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -11,9 +11,12 @@ which needs a card; ``cpu`` runs the kernels' plain versions).  The
 body is plain functions: ``make_arrivals`` (the reference's draws, in
 its order), ``make_cluster`` (its engine settings) and ``run`` (one
 config, policy, parameters and device), which a caller can give a
-full-size config.  ``--dry-run`` and ``--multi-pod`` are the
-reference's TPU-mesh tools and raise.  An encoder-decoder (Whisper) is
-refused by the engine, as in the reference.
+full-size config.  ``--dry-run`` delegates to ``launch.dryrun`` for
+``--arch`` at ``--shape`` (default ``decode_32k``) on the 16 x 16 mesh,
+or the 2 x 16 x 16 one with ``--multi-pod``, and returns its record;
+without ``--dry-run``, ``--multi-pod`` is ignored, as in the reference.
+An encoder-decoder (Whisper) is refused by the engine, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -23,7 +26,6 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import numpy as np
 
 from ..core import JSQPolicy, LinearKVPolicy, LMetricPolicy
-from . import DRY_RUN_NOT_PORTED
 
 #: the reference launcher's engine settings
 ENGINE_KW = dict(block_size=16, max_batch=4, max_len=256, chunk_tokens=64)
@@ -85,22 +87,22 @@ def run(cfg, policy: str, params=None, device="cuda", instances: int = 4,
                                 summarize(done)), cluster)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Served:
+def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_4b")
     ap.add_argument("--instances", type=int, default=4)
     ap.add_argument("--requests", type=int, default=40)
     ap.add_argument("--policy", default="lmetric", choices=list(POLICIES))
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported: lowers the production step on a "
-                         "TPU mesh in the reference")
+                    help="the production step's dry run (launch.dryrun)")
     ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.dry_run or args.multi_pod:
-        raise NotImplementedError(DRY_RUN_NOT_PORTED)
+    if args.dry_run:
+        from .dryrun import launch
+        return launch(args.arch, args.shape, args.multi_pod)
 
     from ..configs import get_config
     out = run(get_config(args.arch + "-smoke"), args.policy,

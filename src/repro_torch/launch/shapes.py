@@ -6,7 +6,8 @@ allocated) where the reference gives ``ShapeDtypeStruct``s; a decode
 spec's cache is the port's own (``Model.init_cache`` on ``meta``: one
 dict per layer, Whisper's cross caches padded to ``cross_rows``, no
 encoder output beside them).  ``model_flops`` and ``analytic_flops`` are
-the reference's arithmetic on the config.
+the reference's arithmetic on the config.  The ``*_at`` forms take any
+(kind, seq, batch), e.g. a run's own, where the others read the table.
 """
 from __future__ import annotations
 
@@ -50,9 +51,12 @@ def input_specs(cfg, shape_name: str) -> Dict:
     prefill-> {"batch": {tokens[,frames,patch_embeds]}}
     decode -> {"token", "pos", "cache"}  (cache on ``meta``)
     """
-    sh = INPUT_SHAPES[shape_name]
-    B, S = sh["batch"], sh["seq"]
-    kind = sh["kind"]
+    return input_specs_at(cfg, **INPUT_SHAPES[shape_name])
+
+
+def input_specs_at(cfg, kind: str, seq: int, batch: int) -> Dict:
+    """``input_specs`` at any (kind, seq, batch)."""
+    B, S = batch, seq
     dtype = getattr(torch, cfg.dtype)
 
     def extras(b):
@@ -99,9 +103,12 @@ def model_flops_at(cfg, kind: str, seq: int, batch: int) -> float:
 def analytic_flops(cfg, shape_name: str) -> float:
     """MODEL_FLOPS + attention/recurrence flops (the quadratic terms 6·N·D
     misses): the roofline's compute term."""
-    sh = INPUT_SHAPES[shape_name]
-    B, S = sh["batch"], sh["seq"]
-    kind = sh["kind"]
+    return analytic_flops_at(cfg, **INPUT_SHAPES[shape_name])
+
+
+def analytic_flops_at(cfg, kind: str, seq: int, batch: int) -> float:
+    """``analytic_flops`` at any (kind, seq, batch)."""
+    B, S = batch, seq
     H, hd = cfg.n_heads, cfg.resolved_head_dim
     extra = 0.0
     for bk in cfg.block_pattern:
@@ -126,4 +133,4 @@ def analytic_flops(cfg, shape_name: str) -> float:
             extra += 4.0 * B * S * cfg.enc_seq * H * hd
     if kind == "train":
         extra *= 3.0   # fwd + bwd
-    return model_flops(cfg, shape_name) + extra
+    return model_flops_at(cfg, kind, seq, batch) + extra

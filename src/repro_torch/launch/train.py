@@ -7,17 +7,19 @@
 ``--smoke`` (the default) takes the reduced config, ``--full`` the
 published one; ``--accum`` micro-batches per step (the reference's
 launcher parses it and trains unsplit).  Training runs on ``--device`` (default ``cuda``, which
-needs a card; ``cpu`` runs the same code on the CPU).  ``--dry-run`` and
-``--multi-pod`` are the reference's TPU-mesh tools (lower the production
-step on a device mesh): they are not ported yet and raise
-(``DRY_RUN_NOT_PORTED``).
+needs a card; ``cpu`` runs the same code on the CPU).  ``--dry-run``
+delegates to ``launch.dryrun`` for ``--arch`` at ``train_4k`` on the 16 x
+16 mesh, or the 2 x 16 x 16 one with ``--multi-pod``, and returns its
+record; without ``--dry-run``, ``--multi-pod`` is ignored, as in the
+reference.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_67b \\
+        --dry-run
 """
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
-
-from . import DRY_RUN_NOT_PORTED
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -32,15 +34,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="use the reduced config (the default)")
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported: lowers the production step on a "
-                         "TPU mesh in the reference")
+                    help="the production train_4k step's dry run "
+                         "(launch.dryrun)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.dry_run or args.multi_pod:
-        raise NotImplementedError(DRY_RUN_NOT_PORTED)
+    if args.dry_run:
+        from .dryrun import launch
+        return launch(args.arch, "train_4k", args.multi_pod)
 
     from ..configs import get_config
     from ..data.pipeline import DataConfig, DataIterator

@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax_or_repro():
                 "training.optim", "training.train_loop",
                 "training.checkpoint", "launch.train", "launch.serve",
                 "launch.shapes", "launch.mesh", "launch.sharding",
-                "models.sharding_hooks"):
+                "models.sharding_hooks", "launch.dryrun", "launch.roofline",
+                "launch.hlo"):
         assert f"repro_torch.{mod}" in names, mod
 
 

@@ -12,8 +12,9 @@ modules (``tests/test_torch_engine.py``'s ``_Clock``: every call of
 arrivals are byte-identical, every request's (instance, hit tokens,
 prompt length, first-token and finish time) is equal, and so is the
 printed row.  ``main``'s flags and defaults are the reference's plus
-``--device``; ``--dry-run`` and ``--multi-pod`` raise, and an
-encoder-decoder is refused by both engines.
+``--device``; ``--dry-run`` writes the dry run's record (with
+``--multi-pod``, the 2 x 16 x 16 one), and an encoder-decoder is
+refused by both engines.
 """
 import sys
 
@@ -136,9 +137,22 @@ def test_main_defaults_and_cpu_run(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--dry-run", "--multi-pod"])
-def test_dry_run_and_multi_pod_raise(flag):
-    with pytest.raises(NotImplementedError, match="launch/dryrun.py"):
-        t_serve.main(["--device", "cpu", flag])
+def test_dry_run_and_multi_pod_raise(flag, tmp_path, monkeypatch):
+    """``--dry-run`` delegates to ``launch.dryrun`` (``--arch`` at
+    ``--shape``, default ``decode_32k``) and writes its record; with
+    ``--multi-pod`` too, the 2 x 16 x 16 record.  Nothing runs on a
+    device: the dry run works on ``meta`` tensors."""
+    import repro_torch.launch.dryrun as dryrun
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    argv = ["--dry-run"] + (["--multi-pod"] if flag == "--multi-pod"
+                            else [])
+    rec = t_serve.main(argv)
+    mesh = "2x16x16" if flag == "--multi-pod" else "16x16"
+    assert rec["ok"] and (rec["arch"], rec["shape"], rec["mesh"]) == \
+        (ARCH, "decode_32k", mesh)
+    assert rec["n_devices"] == (512 if flag == "--multi-pod" else 256)
+    saved = tmp_path / f"{ARCH}__decode_32k__{mesh}.json"
+    assert saved.exists()
 
 
 def test_default_device_needs_a_card(monkeypatch):

@@ -475,9 +475,11 @@ def test_forward_only_guard():
         forward_only("k", x, torch.zeros(3, requires_grad=True))
 
 
-def test_launcher_single_device(tmp_path):
+def test_launcher_single_device(tmp_path, monkeypatch):
     """The launcher's single-device path on the CPU, with accumulation and
-    checkpoints; the TPU-mesh tools raise, naming ROADMAP's item."""
+    checkpoints; ``--dry-run`` writes the ``train_4k`` dry-run record
+    (on ``meta`` tensors, nothing on a device)."""
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as launch
     out = launch.main(["--arch", "qwen3_4b", "--steps", "2", "--seq", "8",
                        "--batch", "2", "--accum", "2", "--device", "cpu",
@@ -485,6 +487,8 @@ def test_launcher_single_device(tmp_path):
     assert len(out["history"]) == 1
     assert np.isfinite(out["history"][0]["loss"])
     assert t_ckpt.latest_step(str(tmp_path)) == 2
-    for flag in ("--dry-run", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch.main(["--arch", "qwen3_4b", flag])
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path / "dryrun"))
+    rec = launch.main(["--arch", "qwen3_4b", "--dry-run"])
+    assert rec["ok"] and (rec["shape"], rec["mesh"], rec["kind"]) == \
+        ("train_4k", "16x16", "train")
+    assert (tmp_path / "dryrun" / "qwen3_4b__train_4k__16x16.json").exists()
