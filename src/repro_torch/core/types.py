@@ -10,7 +10,7 @@ reports attainment and goodput against it, and the admission gate
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -31,6 +31,18 @@ class Request:
     t_sched: float = 0.0
     t_first_token: float = 0.0
     t_finish: float = 0.0
+    # stamped by a serving engine (``serving.engine``): the virtual time
+    # at which the step that gave the request its slot began (-1.0: not
+    # admitted), every served token's virtual time (the first equal to
+    # ``t_first_token``), and the host wall of its fragment restore and
+    # snapshot with the bytes they moved.  A copy through pageable host
+    # memory blocks the host, so both walls are part of the step wall
+    # and of the request's TTFT.
+    t_admit: float = -1.0
+    token_times: List[float] = dataclasses.field(default_factory=list)
+    restore_s: float = 0.0
+    snapshot_s: float = 0.0
+    frag_bytes: int = 0
 
     # ---- overload control / fault tolerance ----
     deadline: Optional["Deadline"] = None   # stamped by the admission gate

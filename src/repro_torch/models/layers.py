@@ -19,6 +19,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..profiling import span
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -200,7 +202,12 @@ def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     ``(E, cap, D)`` buffer, the three expert products over every expert's
     whole buffer, the outputs gathered back, weighted by the routing
     weights cast to the activation dtype and summed over k; plus Arctic's
-    dense residual FFN."""
+    dense residual FFN.  Runs inside the profiler range ``model.moe``."""
+    with span("model.moe"):
+        return _moe_apply(p, x, cfg)
+
+
+def _moe_apply(p, x: torch.Tensor, cfg):
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     r = moe_route(p, x, cfg)

@@ -13,6 +13,14 @@ One :class:`Obs` bundle threads through the routing stack
   .ProvenanceRecorder` (per-decision top-k landscape + the
   multiplication-failure detector).
 
+The bundle covers the routing stack only.  The serving engines
+(``serving.engine``) keep their own plain accumulators, which
+:func:`~repro_torch.obs.registry.ingest_engine` mirrors onto a registry
+(``EngineCluster.metrics_snapshot``), and time their steps with
+``torch.profiler`` ranges (``repro_torch.profiling``) rather than
+``SpanTracer`` events: a virtual clock cannot line up with a device
+trace.
+
 **Disabled-mode identity.**  Observability off is *no* mode: every
 integration point in the routing stack is an ``obs is None`` (or
 component ``is None``) branch, so with the default ``obs=None`` the
@@ -25,8 +33,9 @@ from __future__ import annotations
 from typing import Optional
 
 from .provenance import ProvenanceRecorder
-from .registry import (MetricsRegistry, WORKER_SLOTS, N_WORKER_SLOTS,
-                       ingest_router, merge_snapshots)
+from .registry import (ENGINE_COUNTERS, MetricsRegistry, WORKER_SLOTS,
+                       N_WORKER_SLOTS, ingest_engine, ingest_router,
+                       merge_snapshots)
 from .trace import (DEFAULT_SAMPLE_EVERY, ROUTER_PID, SpanTracer,
                     load_trace, shard_pid, validate_events)
 
@@ -66,6 +75,7 @@ def make_obs(metrics: bool = True, trace: bool = False,
 __all__ = [
     "Obs", "make_obs", "MetricsRegistry", "SpanTracer",
     "ProvenanceRecorder", "WORKER_SLOTS", "N_WORKER_SLOTS",
-    "ingest_router", "merge_snapshots", "load_trace", "validate_events",
+    "ingest_router", "ingest_engine", "ENGINE_COUNTERS", "merge_snapshots",
+    "load_trace", "validate_events",
     "ROUTER_PID", "shard_pid", "DEFAULT_SAMPLE_EVERY",
 ]

@@ -18,7 +18,8 @@ snapshot/merge semantics.
   folds an ``(S, K)`` block into per-shard scoped counters.
 * :func:`ingest_router` re-homes the router's own accumulators (walks,
   pipeline stages, repairs) onto a registry through ``counter_set``, so
-  re-ingesting never double-counts.
+  re-ingesting never double-counts; :func:`ingest_engine` does the same
+  for the serving engines' accumulators (:data:`ENGINE_COUNTERS`).
 
 Imports numpy only.
 """
@@ -258,4 +259,29 @@ def ingest_router(reg: MetricsRegistry, router) -> MetricsRegistry:
         block = wm() if wm is not None else None
     if block is not None:
         reg.ingest_worker_block(block)
+    return reg
+
+
+#: the accumulators every ``serving.engine.InstanceEngine`` keeps:
+#: fragment snapshots and restores, their host walls (ns) and the bytes
+#: both moved, decode steps that put a stalled slot back, prefill steps
+#: and the prompt tokens they computed, decode steps and the requests
+#: they served
+ENGINE_COUNTERS = ("snapshots", "snapshot_ns", "restores", "restore_ns",
+                   "holds", "copied_bytes", "prefill_steps",
+                   "prefill_tokens", "decode_steps", "decode_rows")
+
+
+def ingest_engine(reg: MetricsRegistry, engines) -> MetricsRegistry:
+    """Mirror each serving engine's accumulators onto ``reg`` as
+    ``engine.<iid>.<name>``, plus the totals ``engine.<name>``, through
+    ``counter_set`` (source-owned counts: re-ingesting never
+    double-counts).  ``EngineCluster.metrics_snapshot`` calls this."""
+    for name in ENGINE_COUNTERS:
+        total = 0
+        for e in engines:
+            v = getattr(e, name)
+            reg.counter_set(f"engine.{e.iid}.{name}", v)
+            total += v
+        reg.counter_set(f"engine.{name}", total)
     return reg

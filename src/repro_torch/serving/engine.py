@@ -33,6 +33,28 @@ reference's virtual-time event loop, whose step durations are the
 measured wall times of the engine steps (each ending in a device
 synchronisation, since the host reads the sampled tokens).
 
+The served path is instrumented for an operator and for a device trace:
+
+* each step stamps its requests (``Request.t_admit``, ``token_times``,
+  ``restore_s``, ``snapshot_s``, ``frag_bytes``; ``EngineCluster.run``
+  writes the virtual times), and each engine keeps plain accumulators
+  (snapshots, restores, their host walls and bytes, holds, prefill and
+  decode steps and rows), which ``EngineCluster.metrics_snapshot``
+  ingests (``obs.registry.ingest_engine``);
+* the steps run inside ``torch.profiler`` ranges of fixed names
+  (``engine.step`` holding ``engine.admit`` > ``engine.restore``,
+  ``engine.prefill``, ``engine.snapshot``, ``engine.decode`` >
+  ``engine.hold`` / ``engine.decode.inputs`` / ``engine.decode.forward``
+  / ``engine.sample`` / ``engine.decode.commit``; ``cluster.route`` and
+  ``cluster.hooks`` in ``EngineCluster.run``; ``model.moe`` in
+  ``moe_apply``), entered only while a profiler is on
+  (``repro_torch.profiling``).  They are profiler ranges, not the
+  ``obs`` bundle's ``SpanTracer`` events: that tracer keeps a virtual
+  clock, which cannot line up with the card's activity, and the bundle
+  stays the routing stack's.  A step keeps its two ``time.perf_counter``
+  reads, whose difference is its wall; the copies are timed with
+  ``perf_counter_ns``.
+
 ``device`` (default ``"cuda"``) must be the model's device; only an
 explicit ``"cpu"`` runs the kernels' plain versions.  An encoder-decoder
 (Whisper) is refused, as the reference's engine refuses it; it runs at
@@ -44,6 +66,7 @@ import collections
 import heapq
 import itertools
 import time
+from time import perf_counter_ns
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -54,6 +77,7 @@ from ..core.radix import tokens_to_blocks
 from ..core.router import Router
 from ..core.types import Request
 from ..models.model import Model
+from ..profiling import span
 
 
 class PrefixStore:
@@ -127,6 +151,17 @@ class InstanceEngine:
         self.free_slots = list(range(max_batch))
         self._last_tokens = np.zeros(max_batch, np.int64)
         self._pos = np.zeros(max_batch, np.int64)
+        # plain accumulators over this engine's steps, mirrored onto a
+        # registry by ``obs.registry.ingest_engine``: fragment snapshots
+        # and restores with their host walls and the bytes they moved,
+        # decode steps that put a stalled slot back, prefill steps and
+        # the prompt tokens they computed, decode steps and the requests
+        # they served
+        self.snapshots = self.snapshot_ns = 0
+        self.restores = self.restore_ns = 0
+        self.holds = self.copied_bytes = 0
+        self.prefill_steps = self.prefill_tokens = 0
+        self.decode_steps = self.decode_rows = 0
 
     # ------------------------------------------------------------------
     def _leaves(self):
@@ -152,19 +187,21 @@ class InstanceEngine:
         buffer on the device, then one copy to the host (the gather is a
         copy, so on the CPU too the fragment never aliases the slot that
         the next request overwrites)."""
-        n = sum(-(-t[0].numel() * t.element_size() // 16) * 16
-                for t in self._leaves())
-        flat = torch.empty(n, dtype=torch.uint8, device=self.device)
-        for view, t in zip(self._frag_views(flat), self._leaves()):
-            view.copy_(t[b])
-        return flat.cpu()
+        with span("engine.snapshot"):
+            n = sum(-(-t[0].numel() * t.element_size() // 16) * 16
+                    for t in self._leaves())
+            flat = torch.empty(n, dtype=torch.uint8, device=self.device)
+            for view, t in zip(self._frag_views(flat), self._leaves()):
+                view.copy_(t[b])
+            return flat.cpu()
 
     def _restore(self, b: int, frag: torch.Tensor):
         """Copy a fragment into slot ``b``: one copy to the device, then
         each leaf from its view."""
-        flat = frag.to(self.device)
-        for view, t in zip(self._frag_views(flat), self._leaves()):
-            t[b].copy_(view)
+        with span("engine.restore"):
+            flat = frag.to(self.device)
+            for view, t in zip(self._frag_views(flat), self._leaves()):
+                t[b].copy_(view)
 
     def _prefill(self, tokens: np.ndarray, start: int, b: int
                  ) -> torch.Tensor:
@@ -181,10 +218,12 @@ class InstanceEngine:
 
     def _decode(self, tokens: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """One decode step of every slot; returns logits (max_batch, V)."""
-        toks = torch.from_numpy(tokens[:, None]).to(self.device)
-        logits, _ = self.model.decode_step(
-            self.params, toks, torch.from_numpy(pos).to(self.device),
-            self.cache)
+        with span("engine.decode.inputs"):
+            toks = torch.from_numpy(tokens[:, None]).to(self.device)
+            pos = torch.from_numpy(pos).to(self.device)
+        with span("engine.decode.forward"):
+            logits, _ = self.model.decode_step(self.params, toks, pos,
+                                               self.cache)
         return logits[:, -1]
 
     # ------------------------------------------------------------------
@@ -195,86 +234,126 @@ class InstanceEngine:
         return bool(self.waiting) or bool(self.running)
 
     # ------------------------------------------------------------------
-    def _try_admit(self):
+    def _try_admit(self, events):
         if not self.waiting or not self.free_slots:
             return None
         seq = self.waiting[0]
         if seq.slot >= 0:
             return seq
-        slot = self.free_slots.pop(0)
-        seq.slot = slot
-        for t in self._leaves():
-            t[slot].zero_()
-        # prefix-cache hit: inject fragment, skip its compute
-        blocks = tuple(tokens_to_blocks(seq.tokens.tolist(),
-                                        self.block_size))
-        key, frag, length = self.prefix_store.lookup(blocks)
-        if frag is not None:
-            # always leave >=1 token to prefill (logits source); a full-
-            # prompt hit re-processes just the final token
-            usable = min(length, len(seq.tokens) - 1)
-            if usable > 0:
-                self._restore(slot, frag)
-                seq.pos = usable
-                seq.req.hit_tokens = usable
+        with span("engine.admit"):
+            slot = self.free_slots.pop(0)
+            seq.slot = slot
+            events["admitted"].append(seq)
+            for t in self._leaves():
+                t[slot].zero_()
+            # prefix-cache hit: inject fragment, skip its compute
+            blocks = tuple(tokens_to_blocks(seq.tokens.tolist(),
+                                            self.block_size))
+            key, frag, length = self.prefix_store.lookup(blocks)
+            if frag is not None:
+                # always leave >=1 token to prefill (logits source); a
+                # full-prompt hit re-processes just the final token
+                usable = min(length, len(seq.tokens) - 1)
+                if usable > 0:
+                    t0 = perf_counter_ns()
+                    self._restore(slot, frag)
+                    dt = perf_counter_ns() - t0
+                    seq.req.restore_s += dt * 1e-9
+                    seq.req.frag_bytes += frag.nbytes
+                    self.restores += 1
+                    self.restore_ns += dt
+                    self.copied_bytes += frag.nbytes
+                    seq.pos = usable
+                    seq.req.hit_tokens = usable
         return seq
 
     def step(self) -> Dict:
         """One engine step: a prefill chunk (head-of-queue) OR a batched
-        decode step for all running slots.  Returns events + wall time."""
-        t0 = time.perf_counter()
-        events = {"first": [], "finished": [], "kind": "idle",
-                  "prefill_tokens": 0, "decode_bs": 0}
-        seq = self._try_admit()
-        if seq is not None and not seq.prefill_done:
-            events["kind"] = "prefill"
-            n = min(self.chunk, len(seq.tokens) - seq.pos,
-                    self.max_len - seq.pos)
+        decode step for all running slots.  Returns events + wall time:
+        the step's ``kind``, ``prefill_tokens`` and ``decode_bs``, and
+        the sequences it ``admitted`` (gave a slot), gave their ``first``
+        token, ``served`` (gave a token, first ones included) and
+        ``finished``."""
+        with span("engine.step"):
+            t0 = time.perf_counter()
+            events = {"admitted": [], "first": [], "served": [],
+                      "finished": [], "kind": "idle", "prefill_tokens": 0,
+                      "decode_bs": 0}
+            seq = self._try_admit(events)
+            if seq is not None and not seq.prefill_done:
+                self._prefill_step(seq, events)
+            elif self.running:
+                self._decode_step(events)
+            events["wall"] = time.perf_counter() - t0
+            return events
+
+    def _prefill_step(self, seq: _Seq, events):
+        events["kind"] = "prefill"
+        n = min(self.chunk, len(seq.tokens) - seq.pos,
+                self.max_len - seq.pos)
+        with span("engine.prefill"):
             logits = self._prefill(seq.tokens[seq.pos: seq.pos + n],
                                    seq.pos, seq.slot)
             first = int(logits[0].argmax())
-            events["prefill_tokens"] = n
-            seq.pos += n
-            if seq.pos >= min(len(seq.tokens), self.max_len):
-                # prefill complete -> first token
-                seq.prefill_done = True
-                seq.out_tokens.append(first)
-                seq.generated = 1
-                self.waiting.popleft()
-                self.running[seq.slot] = seq
-                self._last_tokens[seq.slot] = first
-                self._pos[seq.slot] = seq.pos
-                events["first"].append(seq)
-                # save the prompt's KV as a reusable prefix fragment
-                blocks = tuple(tokens_to_blocks(
-                    seq.tokens.tolist(), self.block_size))
-                if blocks:
-                    self.prefix_store.insert(
-                        blocks, self._snapshot(seq.slot),
-                        len(blocks) * self.block_size)
-                if seq.generated >= seq.req.output_len:
-                    self._finish(seq, events)
-        elif self.running:
-            events["kind"] = "decode"
-            events["decode_bs"] = len(self.running)
+        events["prefill_tokens"] = n
+        self.prefill_steps += 1
+        self.prefill_tokens += n
+        seq.pos += n
+        if seq.pos >= min(len(seq.tokens), self.max_len):
+            # prefill complete -> first token
+            seq.prefill_done = True
+            seq.out_tokens.append(first)
+            seq.generated = 1
+            self.waiting.popleft()
+            self.running[seq.slot] = seq
+            self._last_tokens[seq.slot] = first
+            self._pos[seq.slot] = seq.pos
+            events["first"].append(seq)
+            events["served"].append(seq)
+            # save the prompt's KV as a reusable prefix fragment
+            blocks = tuple(tokens_to_blocks(
+                seq.tokens.tolist(), self.block_size))
+            if blocks:
+                t0 = perf_counter_ns()
+                frag = self._snapshot(seq.slot)
+                dt = perf_counter_ns() - t0
+                seq.req.snapshot_s += dt * 1e-9
+                seq.req.frag_bytes += frag.nbytes
+                self.snapshots += 1
+                self.snapshot_ns += dt
+                self.copied_bytes += frag.nbytes
+                self.prefix_store.insert(blocks, frag,
+                                         len(blocks) * self.block_size)
+            if seq.generated >= seq.req.output_len:
+                self._finish(seq, events)
+
+    def _decode_step(self, events):
+        events["kind"] = "decode"
+        events["decode_bs"] = len(self.running)
+        self.decode_steps += 1
+        self.decode_rows += len(self.running)
+        with span("engine.decode"):
             held = self._hold_stalled()
-            nxt = self._decode(self._last_tokens, self._pos).argmax(
-                dim=-1).cpu().numpy()
+            logits = self._decode(self._last_tokens, self._pos)
+            with span("engine.sample"):
+                nxt = logits.argmax(dim=-1).cpu().numpy()
             if held is not None:
                 b, saved = held
-                for t, x in zip(self._leaves(), saved):
-                    t[b].copy_(x)
-            for slot, seq in list(self.running.items()):
-                tok = int(nxt[slot])
-                seq.out_tokens.append(tok)
-                seq.generated += 1
-                self._last_tokens[slot] = tok
-                self._pos[slot] = min(self._pos[slot] + 1, self.max_len - 1)
-                if seq.generated >= seq.req.output_len or \
-                        self._pos[slot] >= self.max_len - 1:
-                    self._finish(seq, events)
-        events["wall"] = time.perf_counter() - t0
-        return events
+                with span("engine.hold"):
+                    for t, x in zip(self._leaves(), saved):
+                        t[b].copy_(x)
+            with span("engine.decode.commit"):
+                for slot, seq in list(self.running.items()):
+                    tok = int(nxt[slot])
+                    seq.out_tokens.append(tok)
+                    seq.generated += 1
+                    events["served"].append(seq)
+                    self._last_tokens[slot] = tok
+                    self._pos[slot] = min(self._pos[slot] + 1,
+                                          self.max_len - 1)
+                    if seq.generated >= seq.req.output_len or \
+                            self._pos[slot] >= self.max_len - 1:
+                        self._finish(seq, events)
 
     def _hold_stalled(self):
         """(slot, copies of its leaves) of a head-of-queue request stalled
@@ -288,7 +367,9 @@ class InstanceEngine:
         if not self.waiting or self.waiting[0].slot < 0:
             return None
         b = self.waiting[0].slot
-        return b, [t[b].clone() for t in self._leaves()]
+        self.holds += 1
+        with span("engine.hold"):
+            return b, [t[b].clone() for t in self._leaves()]
 
     def _finish(self, seq: _Seq, events):
         events["finished"].append(seq)
@@ -357,7 +438,8 @@ class EngineCluster:
             t, _, kind, payload = heapq.heappop(heap)
             if kind == "arrival":
                 req, toks = payload
-                iid = self.router.route(req, t)
+                with span("cluster.route"):
+                    iid = self.router.route(req, t)
                 eng = self.engines[iid]
                 was_idle = not eng.has_work()
                 eng.submit(req, np.asarray(toks))
@@ -374,28 +456,51 @@ class EngineCluster:
                 if not eng.has_work():
                     continue
                 ev = eng.step()
-                now = engine_time[iid] + ev["wall"]
+                began = engine_time[iid]
+                now = began + ev["wall"]
                 engine_time[iid] = now
-                if ev["prefill_tokens"]:
-                    self.router.on_prefill_progress(iid,
-                                                    ev["prefill_tokens"])
-                for seq in ev["first"]:
-                    seq.req.t_first_token = now
-                    self.router.on_start_running(iid, seq.req)
-                if ev["kind"] == "decode":
-                    for _ in range(ev["decode_bs"]):
-                        self.router.on_decode_token(iid)
-                for seq in ev["finished"]:
-                    seq.req.t_finish = now
-                    self.router.on_finish(iid, seq.req)
-                    finished.append(seq.req)
-                    if feedback is not None:
-                        for entry in feedback(seq.req, now):
-                            push(*entry)
-                    if verbose:
-                        print(f"[{now:8.3f}] inst{iid} rid={seq.req.rid} "
-                              f"hit={seq.req.hit_tokens} "
-                              f"out={len(seq.out_tokens)}")
+                for seq in ev["admitted"]:
+                    seq.req.t_admit = began
+                for seq in ev["served"]:
+                    seq.req.token_times.append(now)
+                with span("cluster.hooks"):
+                    if ev["prefill_tokens"]:
+                        self.router.on_prefill_progress(
+                            iid, ev["prefill_tokens"])
+                    for seq in ev["first"]:
+                        seq.req.t_first_token = now
+                        self.router.on_start_running(iid, seq.req)
+                    if ev["kind"] == "decode":
+                        for _ in range(ev["decode_bs"]):
+                            self.router.on_decode_token(iid)
+                    for seq in ev["finished"]:
+                        seq.req.t_finish = now
+                        self.router.on_finish(iid, seq.req)
+                        finished.append(seq.req)
+                        if feedback is not None:
+                            for entry in feedback(seq.req, now):
+                                push(*entry)
+                        if verbose:
+                            print(f"[{now:8.3f}] inst{iid} "
+                                  f"rid={seq.req.rid} "
+                                  f"hit={seq.req.hit_tokens} "
+                                  f"out={len(seq.out_tokens)}")
                 if eng.has_work():
                     heapq.heappush(heap, (now, next(seqno), "step", iid))
         return finished
+
+    def metrics_snapshot(self) -> dict:
+        """One registry snapshot: the router's
+        (``Router.metrics_snapshot``) with every engine's accumulators
+        ingested beside it (``obs.registry.ingest_engine``:
+        ``engine.<iid>.<name>`` and the totals ``engine.<name>``).
+        Ingestion is ``counter_set``, so repeated calls never
+        double-count."""
+        from ..obs.registry import (MetricsRegistry, ingest_engine,
+                                    ingest_router)
+        obs = self.router.obs
+        reg = obs.registry if obs is not None and \
+            obs.registry is not None else MetricsRegistry()
+        ingest_router(reg, self.router)
+        ingest_engine(reg, self.engines)
+        return reg.snapshot()
