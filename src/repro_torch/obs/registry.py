@@ -263,13 +263,14 @@ def ingest_router(reg: MetricsRegistry, router) -> MetricsRegistry:
 
 
 #: the accumulators every ``serving.engine.InstanceEngine`` keeps:
-#: fragment snapshots and restores, their host walls (ns) and the bytes
-#: both moved, decode steps that put a stalled slot back, prefill steps
-#: and the prompt tokens they computed, decode steps and the requests
-#: they served
-ENGINE_COUNTERS = ("snapshots", "snapshot_ns", "restores", "restore_ns",
-                   "holds", "copied_bytes", "prefill_steps",
-                   "prefill_tokens", "decode_steps", "decode_rows")
+#: fragment snapshots and restores, their host walls (ns), the snapshots
+#: kept on the engine's device and the bytes both moved, decode steps
+#: that put a stalled slot back, prefill steps and the prompt tokens they
+#: computed, decode steps and the requests they served
+ENGINE_COUNTERS = ("snapshots", "snapshot_ns", "device_snapshots",
+                   "restores", "restore_ns", "holds", "copied_bytes",
+                   "prefill_steps", "prefill_tokens", "decode_steps",
+                   "decode_rows")
 
 
 def ingest_engine(reg: MetricsRegistry, engines) -> MetricsRegistry:

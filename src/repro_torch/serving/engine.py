@@ -9,15 +9,20 @@ per recurrent layer), runs chunked prefill through
 through ``Model.decode_step`` (the ``paged_attention`` kernel).  A
 host-side ``PrefixStore`` keeps fragments keyed by block-hash chains: on
 a KV$ hit the fragment is copied into the slot and only the suffix tokens
-are prefilled — the paper's compute skip, for real.  As in the reference
-a fragment is the whole slot (every leaf of every layer) after the whole
-prompt, gathered into one flat buffer and copied to host memory in one
-copy, stored with the length of the prompt's full blocks, and the decode
-step runs all ``max_batch`` slots.  For a recurrent layer the fragment
-is the state after the whole prompt, so a hit on a prompt that does not
-end on a block boundary, or on the whole of a stored prompt, runs the
-stored tail's tokens through the state a second time; the port keeps
-that reference behaviour (ROADMAP Queue C.9).
+are prefilled — the paper's compute skip, for real.  A fragment is the
+slot after the whole prompt, stored with the length of the prompt's full
+blocks, gathered into one flat buffer: of each ``attn`` leaf the rows
+below that length (the only rows a hit reads before prefill or decode
+writes them), every other leaf whole (an ``swa`` ring's rows and a
+recurrent state are not positions).  The reference stores the whole
+slot.  The buffer stays on the engine's device when the stores of every
+engine on the card fit there beside a reserve (``place_fragments``),
+else it is copied to host memory in one copy.  The decode step runs all
+``max_batch`` slots.  For a recurrent layer the fragment is the state
+after the whole prompt, so a hit on a prompt that does not end on a
+block boundary, or on the whole of a stored prompt, runs the stored
+tail's tokens through the state a second time; the port keeps that
+reference behaviour (ROADMAP Queue C.9).
 
 Slot surgery is done in place over every leaf of the cache: admitting a
 request zeroes its slot (``zero_``) and a hit copies the fragment into it
@@ -38,8 +43,9 @@ The served path is instrumented for an operator and for a device trace:
 * each step stamps its requests (``Request.t_admit``, ``token_times``,
   ``restore_s``, ``snapshot_s``, ``frag_bytes``; ``EngineCluster.run``
   writes the virtual times), and each engine keeps plain accumulators
-  (snapshots, restores, their host walls and bytes, holds, prefill and
-  decode steps and rows), which ``EngineCluster.metrics_snapshot``
+  (snapshots, those kept on the device, restores, their host walls and
+  bytes, holds, prefill and decode steps and rows), which
+  ``EngineCluster.metrics_snapshot``
   ingests (``obs.registry.ingest_engine``);
 * the steps run inside ``torch.profiler`` ranges of fixed names
   (``engine.step`` holding ``engine.admit`` > ``engine.restore``,
@@ -80,9 +86,50 @@ from ..models.model import Model
 from ..profiling import span
 
 
+# Share of the card's memory left free beside a store of fragments on
+# it: the store is reckoned at whole-slot size, but prefill's activations,
+# the MoE layer's expert buffers and the allocator's rounding need memory
+# that the reckoning does not count, and a card that runs out fails the
+# run.
+STORE_RESERVE = 0.10
+
+
+def store_fits(store_bytes: int, free_bytes: int, total_bytes: int) -> bool:
+    """Whether a fragment store of ``store_bytes`` goes on a card that has
+    ``free_bytes`` of its ``total_bytes`` free: the store and a reserve of
+    ``STORE_RESERVE`` of the card both fit."""
+    return store_bytes + STORE_RESERVE * total_bytes <= free_bytes
+
+
+def place_fragments(engines) -> None:
+    """Where the fragments of ``engines`` (one device, caches allocated)
+    live: on the device when their stores fit there (``store_fits``),
+    each reckoned at whole-slot size for its capacity and one more, the
+    snapshot taken before the store evicts; else in host memory.  On the
+    CPU the host is the device.  A store placed on a card is reserved in
+    the caching allocator (each engine's share allocated, then freed), so
+    that a snapshot's buffer comes out of that reservation rather than
+    from a ``cudaMalloc`` of its own, which blocks the host."""
+    dev = engines[0].device
+    if dev.type != "cuda":
+        for e in engines:
+            e.frag_device = dev
+        return
+    shares = [(e.prefix_store.capacity + 1) * e._frag_bytes(e.max_len)
+              for e in engines]
+    free, total = torch.cuda.mem_get_info(dev)
+    # memory the allocator holds unused is free to the store too
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    on = store_fits(sum(shares), free, total)
+    for e in engines:
+        e.frag_device = dev if on else torch.device("cpu")
+    if on:
+        held = [torch.empty(n, dtype=torch.uint8, device=dev) for n in shares]
+        del held
+
+
 class PrefixStore:
-    """Host-side LRU store of per-slot cache fragments keyed by block-id
-    chains."""
+    """LRU store of per-slot cache fragments keyed by block-id chains."""
 
     def __init__(self, capacity: int = 64):
         self.capacity = capacity
@@ -145,6 +192,26 @@ class InstanceEngine:
         self.chunk = chunk_tokens
         self.block_size = block_size
         self.cache = model.init_cache(max_batch, max_len)
+        # a fragment's layout: first every leaf kept whole (an ``swa``
+        # ring, a recurrent state: its rows are not positions), each at a
+        # 16-byte aligned offset, as (leaf index in ``_leaves`` order,
+        # offset, bytes, dtype, shape); then, in the cache's dtype, the
+        # kept rows of the ``attn`` leaves (their indices), row by row, as
+        # (rows, leaves, KV heads, head dim), so a fragment's size gives
+        # its rows
+        self._frag_whole, self._frag_attn, self._frag_head = [], [], 0
+        kinds = [kind for kind, entry in zip(model.cfg.block_pattern,
+                                             self.cache) for _ in entry]
+        for i, (kind, t) in enumerate(zip(kinds, self._leaves())):
+            if kind == "attn":
+                self._frag_attn.append(i)
+                continue
+            n = t[0].numel() * t.element_size()
+            self._frag_whole.append((i, self._frag_head, n, t.dtype,
+                                     tuple(t.shape[1:])))
+            self._frag_head += -(-n // 16) * 16
+        self._frag_row = len(self._frag_attn) * model.cfg.n_kv_heads * \
+            model.cfg.resolved_head_dim * model.dtype.itemsize
         self.prefix_store = PrefixStore(prefix_capacity)
         self.waiting: collections.deque = collections.deque()
         self.running: Dict[int, _Seq] = {}      # slot -> seq
@@ -157,11 +224,12 @@ class InstanceEngine:
         # decode steps that put a stalled slot back, prefill steps and
         # the prompt tokens they computed, decode steps and the requests
         # they served
-        self.snapshots = self.snapshot_ns = 0
+        self.snapshots = self.snapshot_ns = self.device_snapshots = 0
         self.restores = self.restore_ns = 0
         self.holds = self.copied_bytes = 0
         self.prefill_steps = self.prefill_tokens = 0
         self.decode_steps = self.decode_rows = 0
+        place_fragments([self])
 
     # ------------------------------------------------------------------
     def _leaves(self):
@@ -172,36 +240,70 @@ class InstanceEngine:
         return [{name: t[b:b + 1] for name, t in entry.items()}
                 for entry in self.cache]
 
-    def _frag_views(self, flat: torch.Tensor):
-        """Each cache leaf's slot as a view of the flat byte buffer
-        ``flat``, every leaf at a 16-byte aligned offset."""
-        views, off = [], 0
-        for t in self._leaves():
-            n = t[0].numel() * t.element_size()
-            views.append(flat[off:off + n].view(t.dtype).view(t.shape[1:]))
-            off += -(-n // 16) * 16
-        return views
+    def _frag_bytes(self, rows: int) -> int:
+        """The bytes of a fragment that keeps ``rows`` rows."""
+        return self._frag_head + rows * self._frag_row
 
-    def _snapshot(self, b: int) -> torch.Tensor:
-        """Slot ``b`` as one host buffer: every leaf gathered into one flat
-        buffer on the device, then one copy to the host (the gather is a
-        copy, so on the CPU too the fragment never aliases the slot that
-        the next request overwrites)."""
+    def _frag_body(self, flat: torch.Tensor) -> torch.Tensor:
+        """The ``attn`` rows of the fragment ``flat``, as many as its size
+        holds: (rows, leaves · KV heads, head dim) in the cache's dtype."""
+        cfg = self.model.cfg
+        rows = (flat.numel() - self._frag_head) // max(self._frag_row, 1)
+        return flat[self._frag_head:].view(self.model.dtype).view(
+            rows, len(self._frag_attn) * cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+
+    def _frag_whole_views(self, flat: torch.Tensor):
+        """(leaf index, view) of each leaf the fragment ``flat`` keeps
+        whole."""
+        return [(i, flat[off:off + n].view(dtype).view(shape))
+                for i, off, n, dtype, shape in self._frag_whole]
+
+    def _frag_attn_views(self, flat: torch.Tensor):
+        """(leaf index, view) of each ``attn`` leaf's rows in the fragment
+        ``flat``."""
+        body = self._frag_body(flat).unflatten(
+            1, (len(self._frag_attn), self.model.cfg.n_kv_heads))
+        return list(zip(self._frag_attn, body.unbind(1)))
+
+    def _frag_views(self, flat: torch.Tensor):
+        """Each cache leaf's kept part, in ``_leaves`` order, as a view of
+        the fragment ``flat``: a whole leaf, or an ``attn`` leaf's rows (as
+        many as the fragment keeps)."""
+        return [view for _, view in sorted(
+            self._frag_whole_views(flat) + self._frag_attn_views(flat),
+            key=lambda iv: iv[0])]
+
+    def _snapshot(self, b: int, length: int) -> torch.Tensor:
+        """Slot ``b`` as a fragment of a prompt whose full blocks hold
+        ``length`` rows: the whole leaves copied and the ``attn`` leaves'
+        first rows concatenated into one new flat buffer on the device (a
+        copy, so the fragment never aliases the slot that the next request
+        overwrites), then, where fragments live in host memory, one copy to
+        the host."""
         with span("engine.snapshot"):
-            n = sum(-(-t[0].numel() * t.element_size() // 16) * 16
-                    for t in self._leaves())
-            flat = torch.empty(n, dtype=torch.uint8, device=self.device)
-            for view, t in zip(self._frag_views(flat), self._leaves()):
-                view.copy_(t[b])
-            return flat.cpu()
+            rows = min(length, self.max_len)
+            flat = torch.empty(self._frag_bytes(rows), dtype=torch.uint8,
+                               device=self.device)
+            leaves = list(self._leaves())
+            for i, view in self._frag_whole_views(flat):
+                view.copy_(leaves[i][b])
+            if self._frag_attn:
+                torch.cat([leaves[i][b, :rows] for i in self._frag_attn],
+                          dim=1, out=self._frag_body(flat))
+            return flat.to(self.frag_device)
 
     def _restore(self, b: int, frag: torch.Tensor):
-        """Copy a fragment into slot ``b``: one copy to the device, then
-        each leaf from its view."""
+        """Copy a fragment into slot ``b`` (one copy to the device first
+        where it lives in host memory), each leaf's kept part from its
+        view; an ``attn`` leaf's rows past the fragment's stay zero."""
         with span("engine.restore"):
             flat = frag.to(self.device)
-            for view, t in zip(self._frag_views(flat), self._leaves()):
-                t[b].copy_(view)
+            leaves = list(self._leaves())
+            for i, view in self._frag_whole_views(flat):
+                leaves[i][b].copy_(view)
+            for i, view in self._frag_attn_views(flat):
+                leaves[i][b, :len(view)].copy_(view)
 
     def _prefill(self, tokens: np.ndarray, start: int, b: int
                  ) -> torch.Tensor:
@@ -314,16 +416,17 @@ class InstanceEngine:
             blocks = tuple(tokens_to_blocks(
                 seq.tokens.tolist(), self.block_size))
             if blocks:
+                length = len(blocks) * self.block_size
                 t0 = perf_counter_ns()
-                frag = self._snapshot(seq.slot)
+                frag = self._snapshot(seq.slot, length)
                 dt = perf_counter_ns() - t0
                 seq.req.snapshot_s += dt * 1e-9
                 seq.req.frag_bytes += frag.nbytes
                 self.snapshots += 1
+                self.device_snapshots += int(self.frag_device == self.device)
                 self.snapshot_ns += dt
                 self.copied_bytes += frag.nbytes
-                self.prefix_store.insert(blocks, frag,
-                                         len(blocks) * self.block_size)
+                self.prefix_store.insert(blocks, frag, length)
             if seq.generated >= seq.req.output_len:
                 self._finish(seq, events)
 
@@ -400,6 +503,7 @@ class EngineCluster:
                                        block_size=block_size, device=device,
                                        **engine_kw)
                         for i in range(n_instances)]
+        place_fragments(self.engines)
         exact_only = not model.cfg.has_kv_blocks
         self.router = Router(policy, n_instances,
                              kv_capacity_tokens=kv_capacity_tokens,

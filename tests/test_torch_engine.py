@@ -282,7 +282,7 @@ def test_prefix_hit_preserves_output(bf16_pair):
     assert seq1.req.hit_tokens == 0
     assert seq2.req.hit_tokens >= 48, "second serve must hit the prefix"
     assert out1 == out2, "cache-hit serve must be exact"
-    # stored fragments are host copies, never views of a live slot
+    # stored fragments are copies, never views of a live slot
     cache_mem = {t.untyped_storage().data_ptr() for c in eng.cache
                  for t in c.values()}
     for frag, _ in eng.prefix_store._store.values():
@@ -505,3 +505,111 @@ def test_recurrentgemma_engine_below_window_matches_jax_full_forward():
                 assert out[j] == int(jl.argmax()), (rid, j)
             toks.append(out[j])
     assert starts == [0, 24, 32, 56] and all(0 < s < W for s in starts[1:])
+
+
+# ---------------------------------------------------------------------------
+# fragments: the rows kept, where they live, the counter
+# ---------------------------------------------------------------------------
+def _serve_all(eng, prompts, out=3):
+    """Serve ``prompts`` one after another; per prompt, its last prefill
+    logits (the first token's), its request and its served tokens."""
+    logits, pre = [], eng._prefill
+
+    def rec(*a):
+        out_ = pre(*a)
+        logits.append(out_.clone())
+        return out_
+    eng._prefill = rec
+    got = []
+    for rid, toks in enumerate(prompts):
+        req = Request(rid=rid, arrival=0.0, blocks=(), prompt_len=len(toks),
+                      output_len=out)
+        eng.submit(req, toks)
+        served = None
+        while eng.has_work():
+            for seq in eng.step()["finished"]:
+                served = list(seq.out_tokens)
+        got.append((logits[-1], req, served))
+    return got
+
+
+def test_trimmed_fragment_matches_whole_slot_restore(bf16_pair):
+    """A fragment that keeps an ``attn`` leaf's first ``length`` rows gives
+    the first-token logits and served tokens of a whole-slot fragment, bit
+    for bit: on an extension hit (a 40-token prompt's 32 stored rows under
+    a longer prompt) and on a full-prompt hit (a 48-token prompt again)."""
+    _, _, m, params = bf16_pair
+    rng = np.random.RandomState(11)
+    p40 = rng.randint(4, 500, size=40).astype(np.int32)
+    p48 = rng.randint(4, 500, size=48).astype(np.int32)
+    ext = np.concatenate([p40, rng.randint(4, 500, size=30)]).astype(np.int32)
+    prompts = [p40, p48, ext, p48]
+    kw = dict(max_batch=2, max_len=128, chunk_tokens=32, block_size=16,
+              device="cpu")
+    trimmed = InstanceEngine(m, params, **kw)
+    whole = InstanceEngine(m, params, **kw)
+    whole._snapshot = lambda b, length: InstanceEngine._snapshot(
+        whole, b, whole.max_len)
+    a = _serve_all(trimmed, prompts)
+    b = _serve_all(whole, prompts)
+    assert [r.hit_tokens for _, r, _ in a] == [0, 0, 32, 47]
+    for (la, ra, oa), (lb, rb, ob) in zip(a, b):
+        assert ra.hit_tokens == rb.hit_tokens
+        assert torch.equal(la, lb)
+        assert oa == ob
+        assert 0 < ra.frag_bytes < rb.frag_bytes
+
+
+@pytest.mark.parametrize("name", ["qwen3_4b-smoke", "recurrentgemma_9b-smoke",
+                                  "xlstm_350m-smoke"])
+def test_fragment_bytes_match_reckoning(name):
+    """A fragment holds ``length`` rows of each ``attn`` leaf and every
+    other leaf whole (an ``swa`` ring, a recurrent state), each at a
+    16-byte aligned offset; the request's ``frag_bytes`` and the engine's
+    ``copied_bytes`` report those bytes."""
+    _, _, m, params = _rpair(name)
+    eng = InstanceEngine(m, params, max_batch=2, max_len=128,
+                         chunk_tokens=32, block_size=16, device="cpu")
+    toks = np.random.RandomState(3).randint(4, 500, size=40).astype(np.int32)
+    (_, req, _), = _serve_all(eng, [toks], out=1)
+    (key, (frag, length)), = eng.prefix_store._store.items()
+    assert length == 32
+    want = 0
+    for kind, entry in zip(m.cfg.block_pattern, eng.cache):
+        for t in entry.values():
+            if kind == "attn":
+                want += length * -(-t[0, 0].numel() * t.element_size()
+                                   // 16) * 16
+            else:
+                want += -(-t[0].numel() * t.element_size() // 16) * 16
+    assert frag.nbytes == want == req.frag_bytes == eng.copied_bytes
+    assert frag.device == eng.device
+
+
+def test_store_fits_on_the_card():
+    """The placement rule at the benchmark's two memory budgets: Qwen2-7B's
+    4 engines' stores (15.5 GB) beside 39.7 GB free of 85.0 GB go on the
+    card; Qwen3-30B-A3B's 2 (13.3 GB) beside 11.1 GB free stay on the host."""
+    assert t_engine_mod.store_fits(15.5e9, 39.7e9, 85.0e9)
+    assert not t_engine_mod.store_fits(13.3e9, 11.1e9, 85.0e9)
+    # the reserve is a tenth of the card
+    assert t_engine_mod.store_fits(10e9, 18.6e9, 85.0e9)
+    assert not t_engine_mod.store_fits(10e9, 18.4e9, 85.0e9)
+
+
+def test_device_snapshots_mirrored_by_metrics_snapshot(bf16_pair):
+    """On the CPU the fragments live on the engine's device, so every
+    snapshot is a device snapshot, and ``metrics_snapshot`` mirrors the
+    counter per engine and in total."""
+    _, _, m, params = bf16_pair
+    cluster = EngineCluster(2, m, params, LMetricPolicy(), block_size=16,
+                            device="cpu", max_batch=4, max_len=160,
+                            chunk_tokens=64)
+    done = cluster.run(_arrivals())
+    counters = cluster.metrics_snapshot()["counters"]
+    assert counters["engine.device_snapshots"] == \
+        counters["engine.snapshots"] == len(done)
+    for e in cluster.engines:
+        assert e.frag_device == e.device
+        assert counters[f"engine.{e.iid}.device_snapshots"] == \
+            e.device_snapshots == e.snapshots
